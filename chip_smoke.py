@@ -13,11 +13,22 @@ Phases, each printing its lines:
 5. ``calibration_step`` at full size: 24 images at 1600 x 1200, 2048
    features, 42 pairs, 2048 RANSAC hypotheses, 50 LM iterations; step and
    stage times, peak memory, kernel launches, rotation error against the
-   scene's ground truth.
+   scene's ground truth;
+6. the pipeline's INITIAL_PROCESSING on CUDA against the same run on the
+   CPU, on a 2 x 3 PGM survey at 320 x 240 with ``batch_size=3``: equal
+   nodes and edges, orientations within 0.1 degrees, the Hamming kernel
+   launched and bit-exact on the link's own descriptors;
+7. INITIAL_PROCESSING at full size with the pipeline's defaults: 24 PGM
+   images at 1600 x 1200 in batches of 10; seconds per ``iterate_once``, the
+   stage counters, nodes / edges / groups, LM iterations, peak memory, kernel
+   launches, the kernel against its plain version on one link chunk, and the
+   orientation error against the scene's ground truth.
 
-Run from the repository root with ``python3 chip_smoke.py``. Any failed
-check raises, so the exit code is non-zero; without a CUDA device it exits
-with 1 before doing anything. The last line of standard output is
+The ``kernels`` line names every path that launches a kernel, with the
+launch count of each path's own run, taken with the counter set to 0 just
+before it. Run from the repository root with ``python3 chip_smoke.py``. Any
+failed check raises, so the exit code is non-zero; without a CUDA device it
+exits with 1 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -27,6 +38,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,9 +47,13 @@ import torch
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import hamming_cuda
+from opencalibration_tpu_torch.ops import ransac as R
 from opencalibration_tpu_torch.ops.quaternion import quat_angle, quat_conjugate, quat_multiply
 from opencalibration_tpu_torch.pipeline import calibration as C
+from opencalibration_tpu_torch.pipeline import stages as ST
+from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.testing import survey as S
+from opencalibration_tpu_torch.utils import performance
 
 SMALL = dict(rows=2, cols=3, width=320, height=240, focal=400.0, texture=512,
              max_features=1024)
@@ -145,7 +161,7 @@ def _kernel_cases(rng):
     return cases
 
 
-def _main_path_case(rng, pairs=42, n=2048):
+def _main_path_case(rng, pairs, n):
     """[pairs, n, 16] descriptors where 3/4 of set 2 are noisy copies of set 1
     in shuffled order, with some invalid rows on both sides."""
     p1 = _random_words(rng, (pairs, n))
@@ -173,12 +189,25 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _timed(p1, p2, v1, v2, label):
+    """match_descriptors through the kernel and through the plain version, 20
+    launches each, in the order plain, kernel, kernel, plain."""
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = H.match_descriptors if which == "kernel" else H.match_descriptors_reference
+        runs[which].append(_cuda_ms(lambda: fn(p1, p2, v1, v2), 20))
+    print(f"[kernel] match_descriptors at {label}: kernel {runs['kernel']} ms, "
+          f"plain {runs['plain']} ms (CUDA events, 20 launches each, plain/kernel/kernel/plain)")
+    return statistics.mean(runs["kernel"]), statistics.mean(runs["plain"])
+
+
 def phase_kernel():
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    main = ("main path [42, 2048, 2048]",) + _main_path_case(rng)
+    calib = ("calibration step [42, 2048, 2048]",) + _main_path_case(rng, 42, 2048)
+    link = ("pipeline link chunk [16, 1024, 1024]",) + _main_path_case(rng, ST.LINK_CHUNK, ST.LINK_SUBSET)
     max_err = 0.0
-    for name, p1, p2, v1, v2 in _kernel_cases(rng) + [main]:
+    for name, p1, p2, v1, v2 in _kernel_cases(rng) + [calib, link]:
         p1, p2, v1, v2 = (t.to(dev).contiguous() for t in (p1, p2, v1, v2))
         top2 = hamming_cuda.hamming_top2(p1, p2, v2)
         top2_ref = H.hamming_top2_reference(p1, p2, v2)
@@ -194,16 +223,9 @@ def phase_kernel():
         max_err = max(max_err, err)
         print(f"[kernel] {name}: bit-exact ({int(got[2].sum())} of {got[2].numel()} rows matched)")
 
-    _, p1, p2, v1, v2 = main
-    p1, p2, v1, v2 = (t.to(dev).contiguous() for t in (p1, p2, v1, v2))
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = H.match_descriptors if which == "kernel" else H.match_descriptors_reference
-        runs[which].append(_cuda_ms(lambda: fn(p1, p2, v1, v2), 20))
-    ms, plain_ms = statistics.mean(runs["kernel"]), statistics.mean(runs["plain"])
-    print(f"[kernel] match_descriptors at [42, 2048, 2048]: kernel {runs['kernel']} ms, "
-          f"plain {runs['plain']} ms (CUDA events, 20 launches each, plain/kernel/kernel/plain)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    ms, plain_ms = _timed(*(t.to(dev).contiguous() for t in calib[1:]), "[42, 2048, 2048]")
+    ms_link, plain_ms_link = _timed(*(t.to(dev).contiguous() for t in link[1:]), "[16, 1024, 1024]")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, ms_link=ms_link, plain_ms_link=plain_ms_link)
 
 
 def phase_cuda_vs_cpu():
@@ -301,6 +323,147 @@ def phase_full_size():
     return launches
 
 
+class _LinkRecorder:
+    """Keeps a copy of the first link chunk's descriptors and validity while
+    the pipeline runs (the stage looks its batch function up by name), so the
+    kernel can be held against its plain version on them afterwards."""
+
+    def __init__(self):
+        self.chunk = None
+        self._orig = ST._match_and_ransac_batch
+
+    def __enter__(self):
+        def recording(desc1, xy1, valid1, desc2, xy2, valid2, *args, **kw):
+            if self.chunk is None:
+                self.chunk = tuple(t.clone() for t in (desc1, desc2, valid1, valid2))
+            return self._orig(desc1, xy1, valid1, desc2, xy2, valid2, *args, **kw)
+
+        ST._match_and_ransac_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        ST._match_and_ransac_batch = self._orig
+
+
+def _check_link_chunk(chunk, label):
+    d1, d2, v1, v2 = chunk
+    got = H.match_descriptors(d1, d2, v1, v2)
+    want = H.match_descriptors_reference(d1, d2, v1, v2)
+    _sync()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"kernel != plain version on the {label} link chunk's descriptors")
+    print(f"[{label}] kernel vs plain on a link chunk's own descriptors {tuple(d1.shape)}: bit-exact "
+          f"({int(got[2].sum())} of {got[2].numel()} rows matched)")
+
+
+def _initial_processing(p, paths, timed=False):
+    """Drive INITIAL_PROCESSING; with ``timed``, seconds per iterate_once."""
+    p.add(paths)
+    seconds = []
+    while p.get_state() == PipelineState.INITIAL_PROCESSING:
+        t0 = time.perf_counter()
+        p.iterate_once()
+        if timed:
+            _sync()
+            seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def _by_path(p):
+    return {n.payload.path: n.payload for _, n in p.graph.nodes()}
+
+
+def _edge_paths(p):
+    return {(p.graph.get_node(e.source).payload.path, p.graph.get_node(e.dest).payload.path)
+            for _, e in p.graph.edges()}
+
+
+def phase_pipeline_cuda_vs_cpu():
+    uniforms = R.default_uniforms(ST.LINK_HYPOTHESES, 4, R.DEFAULT_SEED, "cpu")
+    with tempfile.TemporaryDirectory() as d:
+        paths, _, _ = S.write_survey(d, 2, 3, device="cpu")
+        cpu = Pipeline(batch_size=3, device="cpu", ransac_uniforms=uniforms)
+        _initial_processing(cpu, paths)
+        gpu = Pipeline(batch_size=3, device="cuda", ransac_uniforms=uniforms)
+        hamming_cuda.hamming_top2.launches = 0
+        with _LinkRecorder() as rec:
+            _initial_processing(gpu, paths)
+        _sync()
+        launches = hamming_cuda.hamming_top2.launches
+    a, b = _by_path(gpu), _by_path(cpu)
+    if a.keys() != b.keys() or len(a) != 6:
+        raise AssertionError(f"CUDA and CPU pipelines hold different nodes: {len(a)} vs {len(b)}")
+    if _edge_paths(gpu) != _edge_paths(cpu):
+        raise AssertionError("CUDA and CPU pipelines hold different edges")
+    diff = np.asarray([_angles_deg(a[k].orientation, b[k].orientation) for k in sorted(a)])
+    print(f"[pipeline-cuda-vs-cpu] 2x3 at 320x240: {len(a)} nodes, {gpu.graph.size_edges()} edges on both; "
+          f"orientations max {diff.max():.5f} deg apart (bound {PARITY_DEG}); Hamming kernel launches {launches}")
+    if not np.isfinite(diff).all() or diff.max() > PARITY_DEG:
+        raise AssertionError(f"CUDA and CPU pipelines differ by {diff.max():.4f} deg")
+    if launches == 0:
+        raise AssertionError("the CUDA pipeline never launched the Hamming kernel")
+    _check_link_chunk(rec.chunk, "pipeline-cuda-vs-cpu")
+    return launches
+
+
+def phase_pipeline_full_size():
+    cfg = FULL
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths, _, quats_gt = S.write_survey(
+            d, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
+            focal=cfg["focal"], texture=cfg["texture"], device="cuda",
+        )
+        print(f"[pipeline] wrote {len(paths)} PGM images at {cfg['width']}x{cfg['height']} "
+              f"in {time.perf_counter() - t0:.2f} s")
+        p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
+        groups = []
+        solve_groups = ST.solve_groups
+
+        def counting(builts, *args, **kw):
+            groups.append(len(builts))
+            return solve_groups(builts, *args, **kw)
+
+        performance.reset_performance_counters()
+        performance.enable_performance_counters(True)
+        torch.cuda.reset_peak_memory_stats()
+        ST.solve_groups = counting
+        hamming_cuda.hamming_top2.launches = 0
+        try:
+            with _LinkRecorder() as rec:
+                seconds = _initial_processing(p, paths, timed=True)
+        finally:
+            ST.solve_groups = solve_groups
+            performance.enable_performance_counters(False)
+        launches = hamming_cuda.hamming_top2.launches
+        peak = torch.cuda.max_memory_allocated()
+    print(f"[pipeline] INITIAL_PROCESSING: {len(seconds)} iterate_once calls, seconds "
+          f"{[round(t, 4) for t in seconds]}, total {sum(seconds):.4f} s")
+    print("[pipeline] stage counters (host clock; seconds):")
+    for line in performance.total_performance_summary().splitlines():
+        print(f"[pipeline]   {line}")
+    nodes = _by_path(p)
+    degree = {path: 0 for path in nodes}
+    for a, b in _edge_paths(p):
+        degree[a] += 1
+        degree[b] += 1
+    lm_iters = int(performance.get_event_count("lm iterations"))
+    print(f"[pipeline] {len(nodes)} nodes, {p.graph.size_edges()} edges, relax groups per solve {groups}, "
+          f"{lm_iters} LM iterations (full solves), peak memory allocated {peak / 2**30:.3f} GiB, "
+          f"Hamming kernel launches {launches}")
+    if len(nodes) != len(paths) or min(degree.values()) < 1:
+        raise AssertionError(f"not every image is linked: {len(nodes)} nodes, degrees {sorted(degree.values())}")
+    if launches == 0:
+        raise AssertionError("the pipeline never launched the Hamming kernel")
+    _check_link_chunk(rec.chunk, "pipeline")
+    err = np.asarray([_angles_deg(nodes[path].orientation, quats_gt[i]) for i, path in enumerate(paths)])
+    print(f"[pipeline] orientation error vs ground truth: median {np.median(err):.4f} deg, "
+          f"max {err.max():.4f} deg (bounds {MEDIAN_DEG}, {MAX_DEG})")
+    if not np.isfinite(err).all() or not (np.median(err) <= MEDIAN_DEG and err.max() <= MAX_DEG):
+        raise AssertionError(f"cameras not recovered: {np.round(err, 3).tolist()}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -309,10 +472,14 @@ def main():
     phase_build()
     kernel = phase_kernel()
     phase_cuda_vs_cpu()
-    launches = phase_full_size()
+    step_launches = phase_full_size()
+    phase_pipeline_cuda_vs_cpu()
+    pipeline_launches = phase_pipeline_full_size()
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
-        launches=launches, **kernel,
+        launches=pipeline_launches,
+        paths={"pipeline INITIAL_PROCESSING link": pipeline_launches, "calibration_step": step_launches},
+        **kernel,
     )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

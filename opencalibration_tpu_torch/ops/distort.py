@@ -3,7 +3,8 @@
 Functions broadcast over leading dimensions: a pixel [..., 2] goes with a
 camera whose leaves broadcast against ``...`` (a single camera's 0-d focal
 broadcasts against anything). Inverse problems are fixed-iteration Newton
-loops, as in the reference, so shapes and control flow are static.
+loops, as in the reference, so shapes and control flow are static; the
+FORWARD <-> INVERSE model conversions are fixed-iteration 5-parameter LM fits.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from opencalibration_tpu_torch.ops.quaternion import quat_rotate, quat_rotate_inverse
-from opencalibration_tpu_torch.types.camera import FORWARD, CameraModel
+from opencalibration_tpu_torch.types.camera import FORWARD, INVERSE, CameraModel
+from opencalibration_tpu_torch.utils.device import full_fp32
 
 MIN_PROJECTION_Z = 1e-3
 _UNDISTORT_ITERS = 10
@@ -122,6 +124,85 @@ def image_to_3d_world(pixel, model: CameraModel, camera_pos, camera_quat):
 def image_from_3d_world(point, model: CameraModel, camera_pos, camera_quat):
     """World point -> pixel."""
     return image_from_3d(quat_rotate_inverse(camera_quat, point - camera_pos), model)
+
+
+# ---------------------------------------------------------------------------
+# Forward <-> inverse model conversion
+# ---------------------------------------------------------------------------
+
+_CONVERT_GRID = 20
+_FIT_ITERATIONS = 50
+
+
+def _lm_fit_5param(resid_fn, p0, iters: int = _FIT_ITERATIONS):
+    """Dense Levenberg-Marquardt over 5 parameters with a fixed iteration
+    count: every step is taken on the device and none waits for the host."""
+    def cost(p):
+        r = resid_fn(p)
+        return torch.sum(r * r)
+
+    p = p0
+    lam = torch.tensor(1e-4, dtype=p0.dtype, device=p0.device)
+    with full_fp32():
+        for _ in range(iters):
+            r = resid_fn(p)
+            J = torch.func.jacfwd(resid_fn)(p)  # [R, 5]
+            JtJ = J.T @ J
+            g = J.T @ r
+            A = JtJ + lam * torch.diag(torch.clamp_min(torch.diagonal(JtJ), 1e-12))
+            p_new = p - torch.linalg.solve_ex(A, g)[0]
+            c_new = cost(p_new)
+            ok = torch.isfinite(c_new) & (c_new < cost(p))
+            p = torch.where(ok, p_new, p)
+            lam = torch.clamp(torch.where(ok, lam * 0.33, lam * 3.0), 1e-12, 1e10)
+    return p
+
+
+def _pixel_grid(model: CameraModel, divisions: int = _CONVERT_GRID):
+    """[(d + 1)^2, 2] pixels on a regular grid spanning the image."""
+    u = torch.arange(divisions + 1, dtype=model.dtype, device=model.focal_length_pixels.device)
+    u = u / divisions
+    gx, gy = torch.meshgrid(u * model.pixels_cols, u * model.pixels_rows, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+
+
+def _with_distortion(model: CameraModel, params) -> CameraModel:
+    return model.replace(radial_distortion=params[:3], tangential_distortion=params[3:])
+
+
+def convert_to_inverse(model: CameraModel) -> CameraModel:
+    """An INVERSE model matching a single FORWARD model over a pixel grid:
+    the 5 distortion parameters fitted on 3-d ray residuals, on the model's
+    device and dtype."""
+    if model.tag != FORWARD:
+        raise ValueError("convert_to_inverse takes a FORWARD model")
+    pixels = _pixel_grid(model)
+    rays = image_to_3d(pixels, model)
+    repro = image_from_3d(rays, model)  # exact forward reprojection
+    base = model.with_tag(INVERSE)
+
+    def resid(params):
+        return (image_to_3d(repro, _with_distortion(base, params)) - rays).reshape(-1)
+
+    p = _lm_fit_5param(resid, torch.zeros(5, dtype=model.dtype, device=pixels.device))
+    return _with_distortion(base, p)
+
+
+def convert_to_forward(model: CameraModel) -> CameraModel:
+    """A FORWARD model matching a single INVERSE model over a pixel grid
+    (2-d pixel residuals, scaled by the focal length)."""
+    if model.tag != INVERSE:
+        raise ValueError("convert_to_forward takes an INVERSE model")
+    pixels = _pixel_grid(model)
+    rays = image_to_3d(pixels, model)
+    base = model.with_tag(FORWARD)
+    scale = torch.clamp_min(model.focal_length_pixels, 1.0)
+
+    def resid(params):
+        return (image_from_3d(rays, _with_distortion(base, params)) - pixels).reshape(-1) / scale
+
+    p = _lm_fit_5param(resid, torch.zeros(5, dtype=model.dtype, device=pixels.device))
+    return _with_distortion(base, p)
 
 
 def _per_point(model: CameraModel) -> CameraModel:

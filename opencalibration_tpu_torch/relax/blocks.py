@@ -1,12 +1,12 @@
-"""Residual blocks for bundle adjustment (twin of the relative-orientation
-and downwards-prior families of opencalibration_tpu/relax/blocks.py).
+"""Residual blocks for bundle adjustment (twin of the relative-orientation,
+downwards-prior and plane-ray families of opencalibration_tpu/relax/blocks.py).
 
 A block family is a per-instance function ``resid_one(delta_local, data,
 params)``: ``delta_local`` is the instance's slice of the tangent step,
 ``data`` its measurements, and the function gathers current parameters by
 index. The LM solver maps it over instances with ``torch.func.vmap`` and
-differentiates it with ``torch.func.jacfwd`` at delta = 0. The other six
-families (pixel error, plane ray, mesh terms, points) are not ported yet.
+differentiates it with ``torch.func.jacfwd`` at delta = 0. The pixel-error,
+mesh-prior and monotonicity families are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +17,13 @@ from typing import Callable
 
 import torch
 
+from opencalibration_tpu_torch.ops.distort import image_to_3d
+from opencalibration_tpu_torch.ops.intersection import (
+    corner_plane_to_norm_offset,
+    ray_plane_intersection,
+)
 from opencalibration_tpu_torch.ops.quaternion import (
+    _norm,
     angle_between_unit_vectors,
     quat_angle,
     quat_boxplus,
@@ -28,6 +34,7 @@ from opencalibration_tpu_torch.ops.quaternion import (
     quat_rotate_inverse,
 )
 from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+from opencalibration_tpu_torch.types.camera import INVERSE, CameraModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,4 +131,135 @@ def downwards_prior_block(layout: TangentLayout, cam_i, weight, prior_weight=1e-
     return BlockSpec(
         slots=layout.rot_slots(cam_i), data=data, weight=weight,
         resid_one=_downwards_resid, num_residuals=1, name="downwards_prior",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Rays against a mesh triangle (MultiRayPlaneIntersectionAngle), 5 ray slots
+# ---------------------------------------------------------------------------
+
+MAX_TRACK_RAYS = 5
+ROBUST_CENTROID_ITERATIONS = 3
+
+
+def robust_centroid(points, valid, huber_threshold):
+    """Huber-weighted centroid of the valid rows of points [R, 3]: a fixed
+    number of reweighting steps, unrolled, where reaching the reference's
+    early stop freezes later updates instead of leaving the loop."""
+    v = valid.to(points.dtype)
+    # non-finite payloads in masked-out rows must not poison the sums
+    points = torch.where(valid[:, None], points, torch.zeros_like(points))
+    centroid = torch.sum(points * v[:, None], dim=0) / torch.clamp_min(torch.sum(v), 1.0)
+    done = torch.zeros((), dtype=torch.bool, device=points.device)
+    for _ in range(ROBUST_CENTROID_ITERATIONS):
+        err = _norm(points - centroid)
+        w = 1.0 / (err + 1e-8)
+        w = torch.where(err > huber_threshold, w * huber_threshold / torch.clamp_min(err, 1e-30), w)
+        w = w * v
+        new_centroid = torch.sum(w[:, None] * points, dim=0) / torch.clamp_min(torch.sum(w), 1e-30)
+        min_w = torch.amin(torch.where(valid, w, torch.full_like(w, torch.finfo(w.dtype).max)))
+        max_w = torch.amax(torch.where(valid, w, torch.zeros_like(w)))
+        centroid = torch.where(done, centroid, new_centroid)
+        done = done | (min_w > max_w * 0.5)
+    return centroid
+
+
+def _make_plane_ray_resid(use_intrinsics: bool):
+    """Residual of up to 5 rays against one mesh triangle: each valid ray's
+    intersection with the triangle's plane, minus their robust centroid,
+    over the rays' mean length. The ``fixed_dir`` form takes camera-frame
+    directions as data; the ``pixel`` form undistorts pixels through the
+    shared INVERSE model, whose focal, principal point and radial terms are
+    in the tangent."""
+
+    def resid(delta, d, params: RelaxParams):
+        z = params.mesh_z[d["vert_idx"]] + delta[0:3]
+        corners = torch.cat([d["tri_xy"], z[:, None]], dim=-1)  # [3, 3]
+        norm, offset = corner_plane_to_norm_offset(corners)
+
+        cam_idx = d["cam_idx"]  # [5]
+        valid = d["ray_valid"]  # [5]
+        if use_intrinsics:
+            m = d["model_i"]
+            zero = torch.zeros_like(params.focal[m])
+            inv_model = CameraModel(
+                focal_length_pixels=params.focal[m] + delta[3],
+                principal_point=params.principal[m] + delta[4:6],
+                radial_distortion=params.radial[m] + delta[6:9],
+                tangential_distortion=params.tangential[m],
+                pixels_cols=zero,
+                pixels_rows=zero,
+                tag=INVERSE,
+            )
+            dirs_cam = image_to_3d(d["pixel"], inv_model)
+        else:
+            dirs_cam = d["fixed_dir"]
+
+        d_rot = delta[9:24].reshape(MAX_TRACK_RAYS, 3)
+        quats = quat_normalize(quat_boxplus(params.quats[cam_idx], d_rot))
+        world_dirs = quat_rotate(quats, dirs_cam)
+        locs = params.positions[cam_idx]
+
+        inter, hit = ray_plane_intersection(
+            world_dirs, locs, norm.expand_as(world_dirs), offset.expand_as(locs)
+        )
+        inter = torch.where((valid & hit)[:, None], inter, torch.zeros_like(inter))
+        v = valid.to(inter.dtype)
+        n_valid = torch.clamp_min(torch.sum(v), 1.0)
+        avg_dist = torch.sum(v * _norm(inter - locs)) / n_valid
+        centroid = robust_centroid(inter, valid, avg_dist * 0.01)
+        res = (inter - centroid) / torch.clamp_min(avg_dist, 1e-30) * v[:, None]
+        # any parallel valid ray fails the whole block, as a failed cost
+        # function fails the reference's solve; the LM zeroes such instances
+        all_ok = torch.all(hit | ~valid)
+        res = torch.where(all_ok, res, torch.full_like(res, torch.nan))
+        return res.reshape(MAX_TRACK_RAYS * 3)
+
+    return resid
+
+
+_plane_ray_resid_fixed = _make_plane_ray_resid(use_intrinsics=False)
+_plane_ray_resid_intrinsics = _make_plane_ray_resid(use_intrinsics=True)
+
+
+def plane_ray_block(
+    layout: TangentLayout,
+    vert_idx,  # [B, 3] mesh vertex indices of the triangle
+    tri_xy,  # [B, 3, 2] triangle xy (constant)
+    cam_idx,  # [B, 5]
+    ray_valid,  # [B, 5]
+    weight,  # [B]
+    model_i=None,  # [B] shared inverse model slot (pixel form)
+    pixel=None,  # [B, 5, 2] pixels (pixel form)
+    fixed_dir=None,  # [B, 5, 3] camera-frame ray directions (fixed form)
+    huber_delta: float | None = 1.0 * math.pi / 180,
+) -> BlockSpec:
+    """Local tangent (L = 24): the 3 vertex heights, focal, principal point,
+    radial terms, then 5 x 3 rotation increments. 15 residuals."""
+    use_intrinsics = fixed_dir is None
+    B = vert_idx.shape[0]
+    if model_i is None:
+        model_i = torch.zeros(B, dtype=torch.int64, device=vert_idx.device)
+    slots = torch.cat(
+        [
+            layout.mesh_slot(vert_idx[:, 0]),
+            layout.mesh_slot(vert_idx[:, 1]),
+            layout.mesh_slot(vert_idx[:, 2]),
+            layout.focal_slot(model_i),
+            layout.principal_slots(model_i),
+            layout.radial_slots(model_i),
+            layout.rot_slots(cam_idx).reshape(B, MAX_TRACK_RAYS * 3),
+        ],
+        dim=-1,
+    )
+    data = dict(vert_idx=vert_idx, tri_xy=tri_xy, cam_idx=cam_idx, ray_valid=ray_valid, model_i=model_i)
+    if use_intrinsics:
+        data["pixel"] = pixel
+        fn = _plane_ray_resid_intrinsics
+    else:
+        data["fixed_dir"] = fixed_dir
+        fn = _plane_ray_resid_fixed
+    return BlockSpec(
+        slots=slots, data=data, weight=weight, resid_one=fn,
+        num_residuals=MAX_TRACK_RAYS * 3, huber_delta=huber_delta, name="plane_ray",
     )

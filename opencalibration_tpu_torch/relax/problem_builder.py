@@ -1,0 +1,462 @@
+"""Build relax problems from the measurement graph (twin of the
+decomposition and ground-plane parts of
+opencalibration_tpu/relax/problem_builder.py).
+
+The host half is numpy, as in the reference: gather cameras and edges,
+pick measurements (composite-score grid filter, triangle assignment), pad
+block arrays to power-of-two buckets. Device work is the per-inlier-row
+undistort + world rotation + two-ray triangulation (``_edge_rows_device``)
+and the camera-model inversion. Problems are built in an explicit ``dtype``
+on an explicit ``device``; the graph and the camera models stay on the host
+(models as float64 CPU ``CameraModel``s).
+
+``ground_mesh`` (multi-ray tracks, mesh priors) and ``points_3d`` problems,
+and intrinsics in any problem, are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP item rather than build a
+smaller problem.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from opencalibration_tpu.surface.mesh import TriMesh
+from opencalibration_tpu.types.graph import MeasurementGraph, NodePose, SurfaceModel
+from opencalibration_tpu_torch import interop
+from opencalibration_tpu_torch.ops import distort as D
+from opencalibration_tpu_torch.ops.intersection import ray_intersection
+from opencalibration_tpu_torch.ops.quaternion import quat_rotate
+from opencalibration_tpu_torch.relax import blocks as B
+from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+from opencalibration_tpu_torch.types.camera import CameraModel, stack_cameras, take_camera
+from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
+
+DOWN_QUAT = np.array([0.0, 1.0, 0.0, 0.0])  # 180 deg about x: nadir, north-up
+GROUND_PLANE_MARGIN = 50.0  # metres: plane below the cameras, triangle beyond them
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    """Round up to the next power of two (padded instances carry weight 0)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_rows(arr, target, fill=0):
+    arr = np.asarray(arr)
+    if len(arr) >= target:
+        return arr[:target]
+    pad_shape = (target - len(arr),) + arr.shape[1:]
+    return np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
+
+
+@dataclasses.dataclass(frozen=True)
+class RelaxOptions:
+    """Typed subset of the reference's relax option set."""
+
+    orientation: bool = True
+    ground_plane: bool = False
+    ground_mesh: bool = False
+    points_3d: bool = False
+    focal: bool = False
+    principal: bool = False
+    radial_tier: int = 0  # 0 off, 1 Brown2, 2 Brown24, 3 Brown246
+    tangential: bool = False
+    grid_fraction: float = 0.15  # measurement grid-filter cell, fraction of the image
+
+    @property
+    def any_intrinsics(self) -> bool:
+        return self.focal or self.principal or self.radial_tier > 0 or self.tangential
+
+
+@dataclasses.dataclass
+class BuiltProblem:
+    params: RelaxParams
+    layout: TangentLayout
+    blocks: list
+    free_mask: torch.Tensor
+    surface_free_mask: torch.Tensor  # the surface-only pre-solve mask
+    cam_index: Dict[int, int]  # node_id -> camera slot
+    model_index: Dict[int, int]  # model_id -> intrinsics slot
+    mesh: Optional[TriMesh]
+    inverse_models: bool  # whether intrinsics leaves hold INVERSE coefficients
+    track_points: np.ndarray  # [N, 3] triangulated points for the surface cloud
+    track_errors: np.ndarray  # [N]
+
+
+def _gather_cameras(graph: MeasurementGraph, node_poses: Sequence[NodePose], edge_ids: Sequence[int]):
+    """Optimised cameras first, then the frozen boundary cameras the edges
+    reference."""
+    cam_index: Dict[int, int] = {}
+    quats, positions, opt = [], [], []
+    for np_ in node_poses:
+        cam_index[np_.node_id] = len(quats)
+        q = np.asarray(np_.orientation, np.float64)
+        quats.append(np.where(np.isfinite(q).all(), q, DOWN_QUAT))
+        positions.append(np.asarray(np_.position, np.float64))
+        opt.append(True)
+    for edge_id in edge_ids:
+        e = graph.get_edge(edge_id)
+        if e is None:
+            continue
+        for nid in (e.source, e.dest):
+            if nid in cam_index:
+                continue
+            node = graph.get_node(nid)
+            if node is None:
+                continue
+            q = np.asarray(node.payload.orientation, np.float64)
+            p = np.asarray(node.payload.position, np.float64)
+            if not (np.isfinite(q).all() and np.isfinite(p).all()):
+                continue
+            cam_index[nid] = len(quats)
+            quats.append(q)
+            positions.append(p)
+            opt.append(False)
+    return cam_index, np.asarray(quats), np.asarray(positions), np.asarray(opt)
+
+
+def _usable_edges(graph, cam_index, edge_ids):
+    out = []
+    for edge_id in sorted(edge_ids):
+        e = graph.get_edge(edge_id)
+        if e is not None and e.source in cam_index and e.dest in cam_index:
+            out.append(edge_id)
+    return out
+
+
+def _tensors(dtype, device):
+    """(floats, ids, flags) converters from numpy to the problem's tensors."""
+    def floats(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def flags(a):
+        return torch.as_tensor(np.asarray(a, bool), device=device)
+
+    return floats, ids, flags
+
+
+def build_decomposition_problem(graph, node_poses, edge_ids, *, dtype, device) -> Optional[BuiltProblem]:
+    """Relative-orientation problem: decomposed-rotation costs per edge plus
+    the downwards prior."""
+    floats, ids, flags = _tensors(dtype, device)
+    cam_index, quats, positions, opt = _gather_cameras(graph, node_poses, edge_ids)
+    if len(quats) == 0:
+        return None
+    layout = TangentLayout(len(quats), 0, 0, 1)
+    params = RelaxParams.create(floats(quats), floats(positions), dtype=dtype)
+
+    ci, cj, RQ, RT, RS, RV = [], [], [], [], [], []
+    for edge_id in _usable_edges(graph, cam_index, edge_ids):
+        e = graph.get_edge(edge_id)
+        rel = e.payload
+        if len(rel.inlier_idx1) == 0:
+            continue
+        scores = np.asarray(rel.rel_scores, np.float64)
+        if not np.any(scores > 0):
+            continue
+        valid = scores > 0.25 * scores.max()
+        q = np.asarray(rel.rel_quats, np.float64)
+        t = np.asarray(rel.rel_positions, np.float64)
+        valid &= np.isfinite(q).all(axis=1) & np.isfinite(t).all(axis=1)
+        if not valid.any():
+            continue
+        ci.append(cam_index[e.source])
+        cj.append(cam_index[e.dest])
+        RQ.append(np.where(valid[:, None], q, DOWN_QUAT[None]))
+        RT.append(np.where(valid[:, None], t, 0.0))
+        RS.append(np.where(valid, scores, 0.0))
+        RV.append(valid)
+    if not ci:
+        return None
+
+    nb = _bucket(len(ci))
+    blk = B.decomposed_rotation_block(
+        layout, ids(_pad_rows(ci, nb)), ids(_pad_rows(cj, nb)),
+        floats(_pad_rows(np.stack(RQ), nb)), floats(_pad_rows(np.stack(RT), nb)),
+        floats(_pad_rows(np.stack(RS), nb)), flags(_pad_rows(np.stack(RV), nb, fill=False)),
+        floats(_pad_rows(np.ones(len(ci)), nb)),
+    )
+    down = B.downwards_prior_block(layout, ids(np.arange(len(quats))), floats(opt))
+    free = layout.build_free_mask(rot_free=np.asarray(opt), device=device)
+    return BuiltProblem(
+        params=params, layout=layout, blocks=[blk, down], free_mask=free,
+        surface_free_mask=torch.zeros_like(free), cam_index=cam_index,
+        model_index={}, mesh=None, inverse_models=False,
+        track_points=np.zeros((0, 3)), track_errors=np.zeros(0),
+    )
+
+
+def _edge_rows_device(px1, px2, mi1, mi2, q1, q2, p1, p2, models: CameraModel):
+    """Per inlier row, on the tensors' device: undistort each pixel through
+    its row's FORWARD model, rotate into the world frame, triangulate the two
+    rays. Returns (r1 cam, r2 cam, r1 world, r2 world, midpoint, error)."""
+    r1 = D.image_to_3d(px1, take_camera(models, mi1))
+    r2 = D.image_to_3d(px2, take_camera(models, mi2))
+    r1w, r2w = quat_rotate(q1, r1), quat_rotate(q2, r2)
+    mid, err = ray_intersection(r1w, p1, r2w, p2)
+    return r1, r2, r1w, r2w, mid, err
+
+
+def _ground_plane(positions) -> TriMesh:
+    """One big triangle 50 m under the cameras, reaching 50 m past them."""
+    lo, hi = positions[:, :2].min(0), positions[:, :2].max(0)
+    center = 0.5 * (lo + hi)
+    spacing = (hi - lo).max() + GROUND_PLANE_MARGIN
+    height = positions[:, 2].mean() - GROUND_PLANE_MARGIN
+    return TriMesh(
+        np.array(
+            [
+                [center[0] - spacing, center[1] - spacing, height],
+                [center[0] + spacing, center[1] - spacing, height],
+                [center[0], center[1] + spacing, height],
+            ]
+        ),
+        np.array([[0, 1, 2]], np.int32),
+    )
+
+
+def build_mesh_problem(
+    graph: MeasurementGraph,
+    node_poses: Sequence[NodePose],
+    cam_models: Dict[int, CameraModel],
+    edge_ids: Sequence[int],
+    options: RelaxOptions,
+    *,
+    dtype,
+    device,
+) -> Optional[BuiltProblem]:
+    """Ground-plane problem: every kept inlier row becomes a two-ray
+    plane-ray cost against one big triangle under the cameras, with fixed
+    camera-frame ray directions, plus the downwards prior. The plane's
+    height is free; so are the rotations of the group's own cameras. Rows
+    are grid-filtered at ``options.grid_fraction`` of the image."""
+    if options.ground_mesh:
+        raise NotImplementedError(
+            "ground-mesh relax problems (multi-ray tracks, mesh priors) are not ported yet: "
+            "ROADMAP queue 1, B1 (MESH_REFINEMENT)"
+        )
+    if not options.ground_plane:
+        raise ValueError("build_mesh_problem needs ground_plane (or ground_mesh) in the options")
+    if options.any_intrinsics:
+        raise NotImplementedError(
+            "intrinsics in relax problems are not ported yet: ROADMAP queue 1, B3 (CAMERA_PARAMETER_RELAX)"
+        )
+    floats, ids, flags = _tensors(dtype, device)
+    cam_index, quats, positions, opt = _gather_cameras(graph, node_poses, edge_ids)
+    if len(quats) < 2:
+        return None
+    edge_list = _usable_edges(graph, cam_index, edge_ids)
+    if not edge_list:
+        return None
+    mesh = _ground_plane(positions)
+
+    # ---- one shared INVERSE model per camera model id
+    def on_device(m: CameraModel) -> CameraModel:
+        return m.map(lambda x: x.to(device=device, dtype=dtype))
+
+    model_index: Dict[int, int] = {}
+    inv_models = []
+    with PerformanceMeasure("build: model inversion"):
+        for mid, m in sorted(cam_models.items()):
+            model_index[mid] = len(inv_models)
+            inv_models.append(D.convert_to_inverse(on_device(m)))
+    M = max(1, len(inv_models))
+
+    # the mesh-z tangent is padded to a bucket; padded slots carry no
+    # residuals and are frozen
+    V_real = mesh.num_vertices
+    V_pad = _bucket(V_real, minimum=32)
+    layout = TangentLayout(len(quats), V_pad, 0, M)
+    mesh_z0 = np.zeros(V_pad)
+    mesh_z0[:V_real] = mesh.vertices[:, 2]
+
+    def leaf(name, default):
+        if not inv_models:
+            return floats(default)
+        return torch.stack([getattr(m, name) for m in inv_models]).to(dtype)
+
+    params = RelaxParams.create(
+        floats(quats), floats(positions), mesh_z=floats(mesh_z0),
+        focal=leaf("focal_length_pixels", [1.0]), principal=leaf("principal_point", np.zeros((1, 2))),
+        radial=leaf("radial_distortion", np.zeros((1, 3))),
+        tangential=leaf("tangential_distortion", np.zeros((1, 2))), dtype=dtype,
+    )
+
+    node_model = {nid: graph.get_node(nid).payload.model_id for nid in cam_index}
+    fwd_models = {mid: on_device(m) for mid, m in cam_models.items()}
+
+    # ---- gather every usable edge's inlier rows
+    live_edges = []
+    A_px1, A_px2, A_mi1, A_mi2, A_q1, A_q2, A_p1, A_p2 = ([] for _ in range(8))
+    with PerformanceMeasure("build: edge gather host"):
+        for edge_id in edge_list:
+            e = graph.get_edge(edge_id)
+            rel = e.payload
+            n = len(rel.inlier_idx1)
+            if n == 0:
+                continue
+            if node_model[e.source] not in fwd_models or node_model[e.dest] not in fwd_models:
+                continue
+            live_edges.append((edge_id, n))
+            A_px1.append(np.asarray(rel.inlier_pixel1, np.float64))
+            A_px2.append(np.asarray(rel.inlier_pixel2, np.float64))
+            A_mi1.append(np.full(n, model_index[node_model[e.source]]))
+            A_mi2.append(np.full(n, model_index[node_model[e.dest]]))
+            A_q1.append(np.repeat(quats[cam_index[e.source]][None], n, 0))
+            A_q2.append(np.repeat(quats[cam_index[e.dest]][None], n, 0))
+            A_p1.append(np.repeat(positions[cam_index[e.source]][None], n, 0))
+            A_p2.append(np.repeat(positions[cam_index[e.dest]][None], n, 0))
+    if not live_edges:
+        return None
+
+    # ---- one device pass over all rows
+    model_order = sorted(model_index, key=model_index.get)
+    fwd_stack = stack_cameras([fwd_models[mid] for mid in model_order])
+    with PerformanceMeasure("build: edge rows device"):
+        rows = _edge_rows_device(
+            floats(np.concatenate(A_px1)), floats(np.concatenate(A_px2)),
+            ids(np.concatenate(A_mi1)), ids(np.concatenate(A_mi2)),
+            floats(np.concatenate(A_q1)), floats(np.concatenate(A_q2)),
+            floats(np.concatenate(A_p1)), floats(np.concatenate(A_p2)),
+            fwd_stack,
+        )
+        r1c_all, r2c_all, r1w_all, r2w_all, mid_all, err_all = (interop.to_numpy(t) for t in rows)
+
+    # ---- composite-score grid filter + triangle assignment, vectorised
+    # over all edges' rows
+    with PerformanceMeasure("build: grid filter + triangle assign"):
+        R = sum(n for _, n in live_edges)
+        row_edge = np.repeat(np.arange(len(live_edges)), [n for _, n in live_edges])
+        px1_all = np.concatenate(A_px1)
+        px2_all = np.concatenate(A_px2)
+        e_objs = [graph.get_edge(eid) for eid, _ in live_edges]
+        src_slot = np.asarray([cam_index[e.source] for e in e_objs])
+        dst_slot = np.asarray([cam_index[e.dest] for e in e_objs])
+
+        def dims(nid):
+            m = fwd_models[node_model[nid]]
+            return [max(float(m.pixels_cols), 1.0), max(float(m.pixels_rows), 1.0)]
+
+        dims_src = np.asarray([dims(e.source) for e in e_objs])
+        dims_dst = np.asarray([dims(e.dest) for e in e_objs])
+        dist_parts, H_parts = [], []
+        for (_, n), e in zip(live_edges, e_objs):
+            rel = e.payload
+            dist_parts.append(
+                np.asarray(rel.match_distance)[np.asarray(rel.inlier_match_index)]
+                if len(rel.match_distance)
+                else np.zeros(n)
+            )
+            Hm = np.asarray(rel.ransac_relation, np.float64)
+            if Hm.shape != (3, 3) or not np.isfinite(Hm).all():
+                Hm = np.full((3, 3), np.nan)
+            H_parts.append(Hm)
+        dist_all = np.concatenate(dist_parts)
+        H_edge = np.stack(H_parts)  # [E, 3, 3]
+
+        # composite score: triangulation, ray angle, descriptor distance,
+        # homography transfer
+        inter_score = np.where(err_all < 0, 0.0, 1.0 / (1.0 + err_all))
+        cosang = np.sum(r1w_all * r2w_all, axis=1)
+        angle_score = 1.0 - cosang**2
+        desc_score = 1.0 - dist_all
+        src_h = np.concatenate([px1_all, np.ones((R, 1))], axis=1)
+        dst_h = np.einsum("rij,rj->ri", H_edge[row_edge], src_h)
+        wcoord = np.where(np.abs(dst_h[:, 2:3]) < 1e-12, 1e-12, dst_h[:, 2:3])
+        reproj = np.linalg.norm(dst_h[:, :2] / wcoord - px2_all, axis=1)
+        ransac_score = np.where(np.isfinite(reproj), 1.0 / (1.0 + reproj), 1.0)
+        score = inter_score * angle_score * desc_score * ransac_score
+
+        # best per grid cell in EITHER image, per edge
+        keep_all = np.zeros(R, bool)
+        for px_all, dims_e in ((px1_all, dims_src), (px2_all, dims_dst)):
+            g = np.floor(px_all / dims_e[row_edge] / options.grid_fraction).astype(np.int64)
+            cells = (row_edge.astype(np.int64) << 28) | ((g[:, 0] & 0x3FFF) << 14) | (g[:, 1] & 0x3FFF)
+            order = np.lexsort((-score, cells))
+            sc = cells[order]
+            first = np.ones(R, bool)
+            first[1:] = sc[1:] != sc[:-1]
+            best = order[first]
+            keep_all[best[score[best] > 0]] = True
+
+        sel = keep_all & np.isfinite(mid_all).all(axis=1)
+        track_points, track_errors = mid_all[sel], err_all[sel]
+        tri_idx = np.full(R, -1, np.int64)
+        if sel.any():
+            with PerformanceMeasure("build: find triangles"):
+                tri_idx[sel] = mesh.find_triangles(mid_all[sel, :2])
+        cand = np.flatnonzero(tri_idx >= 0)
+    if not len(cand):
+        return None
+
+    # ---- stack the plane-ray block (two valid rays of five), padded
+    with PerformanceMeasure("build: stack blocks"):
+        re = row_edge[cand]
+        tri = mesh.triangles[tri_idx[cand]]  # [K, 3]
+        cam5 = np.zeros((len(cand), 5), np.int64)
+        cam5[:, 0] = src_slot[re]
+        cam5[:, 1] = dst_slot[re]
+        valid5 = np.zeros((len(cand), 5), bool)
+        valid5[:, :2] = True
+        r1k, r2k = r1c_all[cand], r2c_all[cand]
+        fixed_dir = np.stack([r1k, r2k, r1k, r1k, r1k], axis=1)
+        NB = len(cand)
+        nb = _bucket(NB, minimum=64)
+        blk = B.plane_ray_block(
+            layout,
+            vert_idx=ids(_pad_rows(tri, nb)),
+            tri_xy=floats(_pad_rows(mesh.vertices[tri][:, :, :2], nb)),
+            cam_idx=ids(_pad_rows(cam5, nb)),
+            ray_valid=flags(_pad_rows(valid5, nb, fill=False)),
+            weight=floats(_pad_rows(np.ones(NB), nb)),
+            model_i=ids(_pad_rows(np.asarray([model_index.get(node_model[e.source], 0) for e in e_objs])[re], nb)),
+            fixed_dir=floats(_pad_rows(fixed_dir, nb)),
+        )
+        down = B.downwards_prior_block(layout, ids(np.arange(len(quats))), floats(opt))
+
+    mesh_free = np.arange(V_pad) < V_real
+    free = layout.build_free_mask(
+        rot_free=np.asarray(opt) if options.orientation else np.zeros(len(quats), bool),
+        mesh_free=mesh_free, device=device,
+    )
+    surface_free = layout.build_free_mask(
+        rot_free=np.zeros(len(quats), bool), mesh_free=mesh_free, device=device
+    )
+    return BuiltProblem(
+        params=params, layout=layout, blocks=[blk, down], free_mask=free,
+        surface_free_mask=surface_free, cam_index=cam_index,
+        model_index=model_index, mesh=mesh, inverse_models=True,
+        track_points=track_points, track_errors=track_errors,
+    )
+
+
+def apply_solution(built: BuiltProblem, params: RelaxParams, node_poses: Sequence[NodePose]) -> SurfaceModel:
+    """Write solved (host) orientations back into node_poses and build the
+    surface model: the solved mesh, and the cloud of triangulated points
+    whose two rays meet within 1 m^2 in front of both cameras. No ported
+    problem optimises intrinsics, so camera models are never written back
+    (ROADMAP queue 1, B3)."""
+    quats = np.asarray(params.quats)
+    for np_ in node_poses:
+        slot = built.cam_index.get(np_.node_id)
+        if slot is not None:
+            np_.orientation = quats[slot]
+
+    surface = SurfaceModel()
+    if built.mesh is not None:
+        mesh = built.mesh.copy()
+        mesh.vertices[:, 2] = np.asarray(params.mesh_z)[: mesh.num_vertices]
+        surface.mesh = mesh
+    good = np.isfinite(built.track_errors) & (np.abs(built.track_errors) < 1.0)
+    if good.any():
+        surface.cloud.append(built.track_points[good])
+    return surface

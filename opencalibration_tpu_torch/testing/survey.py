@@ -1,16 +1,24 @@
 """Synthetic aerial survey: a textured ground plane seen by a nadir camera
-grid, with exact ground truth (twin of ``make_texture``, ``camera_grid`` and
-``render_views`` in tests/synthetic_survey.py, without JAX).
+grid, with exact ground truth (twin of ``make_texture``, ``camera_grid``,
+``render_views`` and ``write_survey`` in tests/synthetic_survey.py, without
+JAX).
 
 Image size, focal length and texture size are parameters; the defaults are
 the JAX fixture's. Scaling all three together keeps the ground footprint and
-the overlap of every image.
+the overlap of every image. ``write_survey`` writes 8-bit binary PGM files,
+which the port decodes without OpenCV, each with the JSON sidecar geotag
+the pipeline reads.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
+
+from opencalibration_tpu.geo.geo_coord import GeoCoord
 
 from opencalibration_tpu_torch.ops import distort as D
 from opencalibration_tpu_torch.ops.features import _bilinear
@@ -22,6 +30,7 @@ from opencalibration_tpu_torch.ops.quaternion import (
 from opencalibration_tpu_torch.types.camera import CameraModel
 from opencalibration_tpu_torch.utils.device import resolve_device
 
+ORIGIN_LAT, ORIGIN_LON = 47.4, 8.5
 IMG_W, IMG_H = 320, 240
 FOCAL = 400.0
 ALTITUDE = 60.0
@@ -97,3 +106,41 @@ def render_views(tex, positions, quats, *, width=IMG_W, height=IMG_H, focal=FOCA
         v = torch.clamp(ground[:, 1] / ground_extent * (size - 1), 0, size - 1)
         views.append(_bilinear(texj, u, v).reshape(height, width))
     return torch.stack(views)
+
+
+def write_pgm(path, gray: np.ndarray):
+    """[H, W] uint8 -> binary 8-bit PGM."""
+    h, w = gray.shape
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (w, h))
+        f.write(np.ascontiguousarray(gray, np.uint8).tobytes())
+
+
+def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W, height=IMG_H,
+                 focal=FOCAL, texture=None, device):
+    """Render the survey and write ``IMG_<i>.pgm`` files with JSON sidecars
+    (latitude, longitude, altitude, focal_length_px, camera make and model)
+    into ``directory``. The texture spans the survey's footprint plus 60 m;
+    its size defaults to the reference fixture's (512 px per 150 m, at most
+    4096). Returns (paths, positions, quats)."""
+    positions, quats = camera_grid(rows, cols, spacing, seed + 1)
+    extent = max(150.0, float(positions[:, :2].max()) + 60.0)
+    if texture is None:
+        texture = min(4096, max(512, int(extent / 150.0 * 512)))
+    tex = make_texture(seed, size=texture)
+    geo = GeoCoord()
+    geo.set_origin(ORIGIN_LAT, ORIGIN_LON)
+    views = render_views(tex, positions, quats, width=width, height=height, focal=focal,
+                         ground_extent=extent, device=device)
+    paths = []
+    for i, img in enumerate((views.cpu().numpy() * 255).astype(np.uint8)):
+        path = os.path.join(directory, f"IMG_{i:04d}.pgm")
+        write_pgm(path, img)
+        lat, lon, _ = geo.to_wgs84(positions[i])
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump(dict(
+                latitude=float(lat), longitude=float(lon), altitude=float(positions[i][2]),
+                focal_length_px=float(focal), camera_make="Synthetic", camera_model="TestCam",
+            ), f)
+        paths.append(path)
+    return paths, positions, quats
