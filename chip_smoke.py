@@ -22,11 +22,26 @@ Phases, each printing its lines:
    images at 1600 x 1200 in batches of 10; seconds per ``iterate_once``, the
    stage counters, nodes / edges / groups, LM iterations, peak memory, kernel
    launches, the kernel against its plain version on one link chunk, and the
-   orientation error against the scene's ground truth.
+   orientation error against the scene's ground truth;
+8. the same 24-image survey rendered over terrain with 8 m of sinusoidal
+   relief (70 m wavelength), driven from INITIAL_PROCESSING through
+   MESH_REFINEMENT, INITIAL_GLOBAL_RELAX (skipped by default),
+   CAMERA_PARAMETER_RELAX (skipped) and FINAL_GLOBAL_RELAX to
+   GENERATE_THUMBNAIL: seconds per ``iterate_once`` and per state, mesh
+   vertices and triangles and the grid level after every pass, every
+   solve's tangent dimension and route, LM iterations, plan reuses, peak
+   memory, the stage counters, the orientation error after
+   INITIAL_PROCESSING (printed; the ground-plane relax cannot follow the
+   relief) and at the end (bounded), and the final mesh's height error
+   against the relief; then the last full problem solved with the dense and
+   the matrix-free linear solvers on the card (their difference and time per
+   LM iteration), and the matrix-free solve run twice, bit for bit.
 
-The ``kernels`` line names every path that launches a kernel, with the
-launch count of each path's own run, taken with the counter set to 0 just
-before it. Run from the repository root with ``python3 chip_smoke.py``. Any
+The ``kernels`` line gives each kernel's launches on the main path, phase 8
+(INITIAL_PROCESSING through FINAL_GLOBAL_RELAX), and on the paths of
+phases 7 and 5, each taken with the counter set to 0 just before the path
+and read just after it. Run from the repository root with
+``python3 chip_smoke.py``. Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
 exits with 1 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -49,9 +64,11 @@ from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import hamming_cuda
 from opencalibration_tpu_torch.ops import ransac as R
 from opencalibration_tpu_torch.ops.quaternion import quat_angle, quat_conjugate, quat_multiply
+from opencalibration_tpu_torch.parallel import group_solver as GS
 from opencalibration_tpu_torch.pipeline import calibration as C
 from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
+from opencalibration_tpu_torch.relax import lm as LM
 from opencalibration_tpu_torch.testing import survey as S
 from opencalibration_tpu_torch.utils import performance
 
@@ -69,6 +86,14 @@ MAX_ITERATIONS = 50
 PARITY_DEG = 0.1
 # against ground truth at full size
 MEDIAN_DEG, MAX_DEG = 2.0, 5.0
+# the pipeline's terrain: amplitude and wavelength of the sinusoidal relief
+RELIEF_M, RELIEF_WAVELENGTH_M = 8.0, 70.0
+# final mesh heights against the relief, at the vertices inside the camera
+# footprint (the mesh is a coarse piecewise-linear fit of an 8 m sinusoid)
+HEIGHT_MEDIAN_M, HEIGHT_MAX_M = 1.0, 4.0
+# the matrix-free step against the dense one on the last full problem: the CG
+# step is inexact (rtol 1e-2), so the two solves take different paths
+CG_VS_CHOLESKY_DEG, CG_VS_CHOLESKY_M = 0.05, 0.1
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
 
@@ -406,61 +431,215 @@ def phase_pipeline_cuda_vs_cpu():
     return launches
 
 
-def phase_pipeline_full_size():
+def phase_pipeline_full_size(directory, relief_m, label):
+    """INITIAL_PROCESSING at full size over terrain with ``relief_m`` of
+    relief. Returns the pipeline, the survey's paths, positions and
+    orientations, and the state's kernel launches."""
     cfg = FULL
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        paths, _, quats_gt = S.write_survey(
-            d, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
-            focal=cfg["focal"], texture=cfg["texture"], device="cuda",
-        )
-        print(f"[pipeline] wrote {len(paths)} PGM images at {cfg['width']}x{cfg['height']} "
-              f"in {time.perf_counter() - t0:.2f} s")
-        p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
-        groups = []
-        solve_groups = ST.solve_groups
+    t0 = time.perf_counter()
+    paths, positions, quats_gt = S.write_survey(
+        directory, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
+        focal=cfg["focal"], texture=cfg["texture"], relief_amplitude=relief_m,
+        relief_wavelength=RELIEF_WAVELENGTH_M, device="cuda",
+    )
+    print(f"[{label}] wrote {len(paths)} PGM images at {cfg['width']}x{cfg['height']} "
+          f"(relief {relief_m} m) in {time.perf_counter() - t0:.2f} s")
+    p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
+    groups = []
+    solve_groups = ST.solve_groups
 
-        def counting(builts, *args, **kw):
-            groups.append(len(builts))
-            return solve_groups(builts, *args, **kw)
+    def counting(builts, *args, **kw):
+        groups.append(len(builts))
+        return solve_groups(builts, *args, **kw)
 
-        performance.reset_performance_counters()
-        performance.enable_performance_counters(True)
-        torch.cuda.reset_peak_memory_stats()
-        ST.solve_groups = counting
-        hamming_cuda.hamming_top2.launches = 0
-        try:
-            with _LinkRecorder() as rec:
-                seconds = _initial_processing(p, paths, timed=True)
-        finally:
-            ST.solve_groups = solve_groups
-            performance.enable_performance_counters(False)
-        launches = hamming_cuda.hamming_top2.launches
-        peak = torch.cuda.max_memory_allocated()
-    print(f"[pipeline] INITIAL_PROCESSING: {len(seconds)} iterate_once calls, seconds "
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
+    torch.cuda.reset_peak_memory_stats()
+    ST.solve_groups = counting
+    hamming_cuda.hamming_top2.launches = 0
+    try:
+        with _LinkRecorder() as rec:
+            seconds = _initial_processing(p, paths, timed=True)
+    finally:
+        ST.solve_groups = solve_groups
+        performance.enable_performance_counters(False)
+    launches = hamming_cuda.hamming_top2.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{label}] INITIAL_PROCESSING: {len(seconds)} iterate_once calls, seconds "
           f"{[round(t, 4) for t in seconds]}, total {sum(seconds):.4f} s")
-    print("[pipeline] stage counters (host clock; seconds):")
+    print(f"[{label}] stage counters (host clock; seconds):")
     for line in performance.total_performance_summary().splitlines():
-        print(f"[pipeline]   {line}")
+        print(f"[{label}]   {line}")
     nodes = _by_path(p)
     degree = {path: 0 for path in nodes}
     for a, b in _edge_paths(p):
         degree[a] += 1
         degree[b] += 1
     lm_iters = int(performance.get_event_count("lm iterations"))
-    print(f"[pipeline] {len(nodes)} nodes, {p.graph.size_edges()} edges, relax groups per solve {groups}, "
+    print(f"[{label}] {len(nodes)} nodes, {p.graph.size_edges()} edges, relax groups per solve {groups}, "
           f"{lm_iters} LM iterations (full solves), peak memory allocated {peak / 2**30:.3f} GiB, "
           f"Hamming kernel launches {launches}")
     if len(nodes) != len(paths) or min(degree.values()) < 1:
         raise AssertionError(f"not every image is linked: {len(nodes)} nodes, degrees {sorted(degree.values())}")
     if launches == 0:
         raise AssertionError("the pipeline never launched the Hamming kernel")
-    _check_link_chunk(rec.chunk, "pipeline")
+    _check_link_chunk(rec.chunk, label)
+    return p, paths, positions, quats_gt, launches
+
+
+def _orientation_error(p, paths, quats_gt, label, bounded=True):
+    """Orientation error against the ground truth; with ``bounded``, raise
+    outside the bounds."""
+    nodes = _by_path(p)
     err = np.asarray([_angles_deg(nodes[path].orientation, quats_gt[i]) for i, path in enumerate(paths)])
-    print(f"[pipeline] orientation error vs ground truth: median {np.median(err):.4f} deg, "
-          f"max {err.max():.4f} deg (bounds {MEDIAN_DEG}, {MAX_DEG})")
-    if not np.isfinite(err).all() or not (np.median(err) <= MEDIAN_DEG and err.max() <= MAX_DEG):
+    bounds = f"bounds {MEDIAN_DEG}, {MAX_DEG}" if bounded else "not bounded"
+    print(f"[{label}] orientation error vs ground truth: median {np.median(err):.4f} deg, "
+          f"max {err.max():.4f} deg ({bounds})")
+    if not np.isfinite(err).all():
+        raise AssertionError(f"non-finite orientations: {err.tolist()}")
+    if bounded and not (np.median(err) <= MEDIAN_DEG and err.max() <= MAX_DEG):
         raise AssertionError(f"cameras not recovered: {np.round(err, 3).tolist()}")
+
+
+class _SolveRecorder:
+    """Records every relax solve of the pipeline (groups, each group's
+    tangent dimension, the batch layout's dimension and route, LM
+    iterations) and keeps the last one's built problems."""
+
+    def __init__(self):
+        self.solves = []
+        self.last_builts = None
+        self._orig = ST.solve_groups
+
+    def __enter__(self):
+        def recording(builts, *args, **kw):
+            dim = GS.batch_layout(builts).dim
+            out = self._orig(builts, *args, **kw)
+            self.solves.append(dict(
+                groups=len(builts), dims=[b.layout.dim for b in builts], batch_dim=dim,
+                route=LM.route(dim), lm=[int(i.iterations) for i in out[1]],
+            ))
+            self.last_builts = list(builts)
+            return out
+
+        ST.solve_groups = recording
+        return self
+
+    def __exit__(self, *exc):
+        ST.solve_groups = self._orig
+
+
+def _height_error(p, positions):
+    """Final mesh heights against the relief at the vertices inside the
+    camera footprint, in the survey's frame (local frame + the first
+    camera's offset)."""
+    first = _by_path(p)[sorted(_by_path(p))[0]]
+    offset = positions[0] - np.asarray(first.position)
+    v = p.surfaces[0].mesh.vertices + offset
+    lo, hi = positions[:, :2].min(0), positions[:, :2].max(0)
+    inside = np.all((v[:, :2] >= lo) & (v[:, :2] <= hi), axis=1)
+    truth = S.relief_height(torch.as_tensor(v[inside, :2]), RELIEF_M, RELIEF_WAVELENGTH_M).numpy()
+    return np.abs(v[inside, 2] - truth), int(inside.sum())
+
+
+def _solve_ms_per_iteration(built, linear_solver):
+    _sync()
+    t0 = time.perf_counter()
+    params, info = LM.solve(built.params, built.blocks, built.layout, built.free_mask, linear_solver=linear_solver)
+    _sync()
+    seconds = time.perf_counter() - t0
+    return params, info, 1e3 * seconds / max(int(info.iterations), 1)
+
+
+def phase_mesh_refinement(directory):
+    """The relief survey from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX;
+    returns the kernel launches of the whole run (the link check between the
+    two parts launches the kernel too and is not counted)."""
+    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip")
+    _orientation_error(p, paths, quats_gt, "mesh-ip", bounded=False)
+    p.skip_camera_param_relax = True
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
+    torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.hamming_top2.launches = 0
+    steps = []
+    try:
+        with _SolveRecorder() as rec:
+            while p.get_state() != PipelineState.GENERATE_THUMBNAIL:
+                state = p.get_state()
+                n_solves = len(rec.solves)
+                t0 = time.perf_counter()
+                p.iterate_once()
+                _sync()
+                mesh = p.surfaces[0].mesh if p.surfaces else None
+                steps.append(dict(
+                    state=state, seconds=time.perf_counter() - t0,
+                    level=getattr(p, "_mesh_grid_level", None) if state == PipelineState.MESH_REFINEMENT else None,
+                    vertices=mesh.num_vertices if mesh is not None else 0,
+                    triangles=mesh.num_triangles if mesh is not None else 0,
+                    solves=rec.solves[n_solves:],
+                ))
+                if len(steps) > 60:
+                    raise AssertionError("the pipeline did not reach GENERATE_THUMBNAIL in 60 passes")
+    finally:
+        performance.enable_performance_counters(False)
+    launches = ip_launches + hamming_cuda.hamming_top2.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_state = {}
+    for st in steps:
+        per_state.setdefault(st["state"], []).append(st["seconds"])
+    print(f"[mesh] {len(steps)} iterate_once calls, total {sum(st['seconds'] for st in steps):.4f} s; per state "
+          + ", ".join(f"{k} {len(v)} x, {sum(v):.4f} s" for k, v in per_state.items()))
+    for i, st in enumerate(steps):
+        solves = "; ".join(
+            f"{s['groups']} group(s) dims {s['dims']} batch dim {s['batch_dim']} -> {s['route']}, LM {s['lm']}"
+            for s in st["solves"]
+        ) or "no solve"
+        print(f"[mesh] pass {i}: {st['state']} level {st['level']}, {st['seconds']:.4f} s, "
+              f"{st['vertices']} vertices, {st['triangles']} triangles; {solves}")
+    print("[mesh] stage counters (host clock; seconds):")
+    for line in performance.total_performance_summary().splitlines():
+        print(f"[mesh]   {line}")
+    refine_passes = per_state.get(PipelineState.MESH_REFINEMENT, [])
+    reuses = int(performance.get_event_count("relax plan reuses"))
+    lm_iters = int(performance.get_event_count("lm iterations"))
+    routes = sorted({s["route"] for st in steps for s in st["solves"]})
+    print(f"[mesh] {len(refine_passes)} MESH_REFINEMENT passes, final mesh {steps[-1]['vertices']} vertices / "
+          f"{steps[-1]['triangles']} triangles, {lm_iters} LM iterations (full solves), {reuses} plan reuses, "
+          f"routes {routes}, peak memory allocated {peak / 2**30:.3f} GiB; Hamming kernel launches {launches} "
+          f"from INITIAL_PROCESSING on")
+    if len(refine_passes) < 2 or steps[-1]["triangles"] <= 2:
+        raise AssertionError("MESH_REFINEMENT never refined the mesh over the relief")
+    if reuses == 0:
+        raise AssertionError("FINAL_GLOBAL_RELAX never reused its plan")
+    _orientation_error(p, paths, quats_gt, "mesh")
+    herr, n_inside = _height_error(p, positions)
+    print(f"[mesh] mesh height error vs the relief at {n_inside} vertices inside the camera footprint: "
+          f"median {np.median(herr):.4f} m, max {herr.max():.4f} m (bounds {HEIGHT_MEDIAN_M}, {HEIGHT_MAX_M})")
+    if not n_inside or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
+        raise AssertionError(f"mesh does not follow the relief: {np.round(herr, 3).tolist()}")
+
+    # the last full problem (FINAL_GLOBAL_RELAX's one-group pass), solved by
+    # the dense and the matrix-free linear solvers on the card
+    built = rec.last_builts[-1]
+    torch.cuda.reset_peak_memory_stats()
+    ch, ch_info, ch_ms = _solve_ms_per_iteration(built, "cholesky")
+    ch_peak = torch.cuda.max_memory_allocated()
+    cg, cg_info, cg_ms = _solve_ms_per_iteration(built, "cg")
+    cg2, _, cg2_ms = _solve_ms_per_iteration(built, "cg")
+    ang = _angles_deg(ch.quats, cg.quats)
+    dz = float((ch.mesh_z - cg.mesh_z).abs().max())
+    same = all(torch.equal(getattr(cg, f), getattr(cg2, f)) for f in ("quats", "mesh_z", "focal", "radial"))
+    print(f"[mesh] last full problem: tangent dim {built.layout.dim} ({built.layout.C} cameras, "
+          f"{built.layout.V} mesh slots), blocks {[(b.name, b.slots.shape[0]) for b in built.blocks]}")
+    print(f"[mesh] cholesky: {int(ch_info.iterations)} LM iterations, {ch_ms:.3f} ms each, peak memory allocated "
+          f"{ch_peak / 2**30:.3f} GiB; cg: {int(cg_info.iterations)} LM iterations, {cg_ms:.3f} / {cg2_ms:.3f} ms "
+          f"each (two runs); cg vs cholesky: orientations {ang.max():.5f} deg, heights {dz:.5f} m apart "
+          f"(bounds {CG_VS_CHOLESKY_DEG}, {CG_VS_CHOLESKY_M}); cg run twice bit-identical: {same}")
+    if not same:
+        raise AssertionError("two CG solves of the same problem differ")
+    if not (np.isfinite(ang).all() and ang.max() <= CG_VS_CHOLESKY_DEG and dz <= CG_VS_CHOLESKY_M):
+        raise AssertionError("the CG and Cholesky solves disagree")
     return launches
 
 
@@ -474,11 +653,17 @@ def main():
     phase_cuda_vs_cpu()
     step_launches = phase_full_size()
     phase_pipeline_cuda_vs_cpu()
-    pipeline_launches = phase_pipeline_full_size()
+    with tempfile.TemporaryDirectory() as d:
+        p, paths, _, quats_gt, ip_launches = phase_pipeline_full_size(d, 0.0, "pipeline")
+        _orientation_error(p, paths, quats_gt, "pipeline")
+    del p
+    with tempfile.TemporaryDirectory() as d:
+        mesh_launches = phase_mesh_refinement(d)
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
-        launches=pipeline_launches,
-        paths={"pipeline INITIAL_PROCESSING link": pipeline_launches, "calibration_step": step_launches},
+        launches=mesh_launches,
+        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, relief": mesh_launches,
+               "pipeline INITIAL_PROCESSING, flat": ip_launches, "calibration_step": step_launches},
         **kernel,
     )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,11 +1,16 @@
 """Pipeline facade and state machine (twin of
-opencalibration_tpu/pipeline/pipeline.py), through its first state.
+opencalibration_tpu/pipeline/pipeline.py), through FINAL_GLOBAL_RELAX.
 
 ``Pipeline(device=...)`` takes image paths with ``add`` and advances with
 ``iterate_once``. INITIAL_PROCESSING is software-pipelined across calls: batch
 N loads while batch N-1 links and batch N-2 relaxes; the state repeats until
-every image is loaded, linked and relaxed. The later states are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+every image is loaded, linked and relaxed. MESH_REFINEMENT then alternates a
+ground-mesh relax with one point-density refinement of the mesh, level by
+level; INITIAL_GLOBAL_RELAX (skipped by default) and FINAL_GLOBAL_RELAX run
+the same ground-mesh relax over every image, reusing the problem structure
+across their passes. CAMERA_PARAMETER_RELAX runs only when skipped
+(``skip_camera_param_relax``); it and every state after FINAL_GLOBAL_RELAX
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 The pipeline holds its device and the dtype of its relax problems
 explicitly: float32 on a GPU, float64 where a parity test holds it against
@@ -15,12 +20,15 @@ the JAX package's x64 CPU run. Matching and RANSAC always run in float32.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from opencalibration_tpu.geo.geo_coord import GeoCoord
+from opencalibration_tpu.surface.mesh import build_minimal_mesh
+from opencalibration_tpu.surface.refine import merge_surface_models, refine_by_point_density
 from opencalibration_tpu.types.graph import MeasurementGraph, SurfaceModel
 from opencalibration_tpu_torch.pipeline.stages import LinkStage, LoadStage, RelaxStage
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
@@ -51,12 +59,12 @@ class PipelineState:
     ]
 
 
+RELAX_MAX_ITERATIONS = 5  # passes of a relax state
+FINAL_RELAX_MAX_ITERATIONS = 3  # FINAL_GLOBAL_RELAX: its last pass is one group
+
 # where each state not ported yet stands in ROADMAP.md (queue 1)
 _NOT_PORTED = {
-    PipelineState.MESH_REFINEMENT: "queue 1, B1 (MESH_REFINEMENT)",
-    PipelineState.INITIAL_GLOBAL_RELAX: "queue 1, B4 (the global relax states)",
     PipelineState.CAMERA_PARAMETER_RELAX: "queue 1, B3 (CAMERA_PARAMETER_RELAX)",
-    PipelineState.FINAL_GLOBAL_RELAX: "queue 1, B4 (the global relax states)",
     PipelineState.GENERATE_THUMBNAIL: "queue 1, Slice C (the ortho tail)",
     PipelineState.DENSIFY_MESH: "queue 1, Slice D (dense stereo)",
     PipelineState.DENSE_MESH_RELAX: "queue 1, Slice D (dense stereo)",
@@ -128,7 +136,17 @@ class Pipeline:
 
         self._prev_loaded_ids: List[int] = []
         self._prev_linked_ids: List[int] = []
+
+        # problem-structure cache across the passes of one relax state
+        self._relax_plan = None
+        self._edges_version = 0  # bumped when edge inlier sets change
         self.step_callback: Optional[Callable[[StepCompletionInfo], None]] = None
+
+        # stage-skip flags, with the reference's defaults
+        self.skip_initial_global_relax = True
+        self.skip_camera_param_relax = False
+        self.skip_final_global_relax = False
+        self.skip_mesh_refinement = False
 
     # --- public API -------------------------------------------------------
     def add(self, paths: Sequence[str]):
@@ -155,15 +173,17 @@ class Pipeline:
 
     def iterate_once(self) -> str:
         state = self._state
-        if state != PipelineState.INITIAL_PROCESSING:
+        handler = getattr(self, "_run_" + state.lower(), None)
+        if handler is None:
             raise NotImplementedError(
                 f"pipeline state {state} is not ported yet: ROADMAP {_NOT_PORTED[state]}"
             )
         with PerformanceMeasure(f"state {state}"):
-            transition = self._run_initial_processing()
+            transition = handler()
         if transition == "NEXT":
             self._state = PipelineState.ORDER[PipelineState.ORDER.index(state) + 1]
             self._state_run_count = 0
+            self._relax_plan = None  # the cache is per state
         else:
             self._state_run_count += 1
         return self._state
@@ -206,6 +226,7 @@ class Pipeline:
         self._link_stage.init(self.graph, self.gps_positions, self._prev_loaded_ids)
         self._relax_stage.init(
             self.graph, self._prev_linked_ids, self.gps_positions, self.model_store,
+            relax_all=False, disable_parallelism=False,
             options=RelaxOptions(orientation=True, ground_plane=True),
         )
 
@@ -216,7 +237,7 @@ class Pipeline:
         if self.overlap_io:
             self._load_stage.start_decode(self.parallelism)
             with PerformanceMeasure("ip: relax dispatch"):
-                self._relax_stage.dispatch(self.graph)
+                self._relax_stage.dispatch(self.graph, self.surfaces)
             with PerformanceMeasure("ip: link run"):
                 self._link_stage.run(self.graph, self.model_store)
             with PerformanceMeasure("ip: relax run"):
@@ -229,7 +250,7 @@ class Pipeline:
             with PerformanceMeasure("ip: link run"):
                 self._link_stage.run(self.graph, self.model_store)
             with PerformanceMeasure("ip: relax run"):
-                self._relax_stage.run_all(self.graph)
+                self._relax_stage.run_all(self.graph, self.surfaces)
 
         with PerformanceMeasure("ip: load finalize"):
             loaded = self._load_stage.finalize(
@@ -238,7 +259,7 @@ class Pipeline:
         with PerformanceMeasure("ip: link finalize"):
             linked = self._link_stage.finalize(self.graph)
         with PerformanceMeasure("ip: relax finalize"):
-            relaxed = self._relax_stage.finalize(self.graph)
+            relaxed = self._relax_stage.finalize(self.graph, self.model_store)
         new_surfaces = [s for s in self._relax_stage.surfaces() if s.mesh is not None or s.cloud]
         if new_surfaces:
             self.surfaces = self._merge_group_surfaces(new_surfaces)
@@ -253,13 +274,169 @@ class Pipeline:
             return "REPEAT"
         return "NEXT"
 
+    # mesh-refinement constants
+    _MESH_MAX_POINTS_PER_TRIANGLE = 20
+    _MESH_VARIANCE_GSD_MULTIPLIER = 2.0
+    _MESH_BASE_GRID_FRACTION = 0.1
+    _MESH_MAX_GRID_LEVELS = 3
+    # LM budget of each refinement pass: every pass continues from the last
+    # one's solution, so a bounded continuation converges across passes
+    _MESH_REFINE_LM_BUDGET = 30
+
+    def _mesh_gsd(self, grid_fraction: float):
+        """Mean ground-sample distance and the level's minimum triangle size."""
+        surf_z, n = 0.0, 0
+        for s in self.surfaces:
+            if s.mesh is not None and s.mesh.num_vertices > 0:
+                z = s.mesh.vertices[:, 2]
+                z = z[np.isfinite(z)]
+                surf_z += float(z.sum())
+                n += len(z)
+        surf_z = surf_z / n if n else 0.0
+        cam_z, arc, size, count = 0.0, 0.0, 0.0, 0
+        for _, node in self.graph.nodes():
+            model = self.model_store.get(node.payload.model_id)
+            if model is None:
+                continue
+            f = float(model.focal_length_pixels)
+            if f <= 0 or not np.isfinite(node.payload.position).all():
+                continue
+            cam_z += float(node.payload.position[2])
+            arc += 1.0 / f
+            size += max(float(model.pixels_cols), float(model.pixels_rows))
+            count += 1
+        if count == 0:
+            return 0.01, 0.0
+        cam_z, arc, size = cam_z / count, arc / count, size / count
+        gsd = max(0.001, abs(cam_z - surf_z) * arc)
+        reduced = math.sqrt(self._MESH_MAX_POINTS_PER_TRIANGLE / 8.0) * grid_fraction * size * gsd
+        return gsd, reduced
+
+    def _run_mesh_refinement(self) -> str:
+        """Alternate a ground-mesh relax at the level's grid fraction with one
+        point-density refinement pass gated on a plane variance of
+        (2 x GSD)^2, starting from a minimal mesh; a level whose pass created
+        no triangle moves to the next, finer level."""
+        if self.skip_mesh_refinement:
+            return "NEXT"
+        rc = self._state_run_count
+        if rc == 0:
+            self._mesh_grid_level = 0
+            self._mesh_level_triangles = 0
+            cams = [np.asarray(node.payload.position) for _, node in self.graph.nodes()
+                    if np.isfinite(node.payload.position).all()]
+            clouds = [c for s in self.surfaces for c in s.cloud]
+            if len(cams) >= 2:
+                mesh = build_minimal_mesh(np.stack(cams), prior_z_points=np.concatenate(clouds) if clouds else None)
+                if mesh is not None:
+                    self.surfaces = [SurfaceModel(cloud=[], mesh=mesh)]
+
+        frac = self._MESH_BASE_GRID_FRACTION / (2.0 ** self._mesh_grid_level)
+        self._relax_stage.max_lm_iterations = self._MESH_REFINE_LM_BUDGET
+        try:
+            self._global_relax(RelaxOptions(orientation=True, ground_mesh=True, grid_fraction=frac), None, False)
+        finally:
+            self._relax_stage.max_lm_iterations = None
+        if not self.surfaces:
+            return "NEXT"
+
+        gsd, reduced = self._mesh_gsd(frac)
+        min_var = (self._MESH_VARIANCE_GSD_MULTIPLIER * gsd) ** 2
+        created = 0
+        refined_surfaces = []
+        for s in self.surfaces:
+            if s.mesh is None or not s.cloud:
+                refined_surfaces.append(s)
+                continue
+            refined = refine_by_point_density(
+                s.mesh, np.concatenate(s.cloud), self._MESH_MAX_POINTS_PER_TRIANGLE,
+                min_distance_variance=min_var, max_iterations=1, min_triangle_size=reduced,
+            )
+            created += refined.num_triangles - s.mesh.num_triangles
+            refined_surfaces.append(SurfaceModel(cloud=s.cloud, mesh=refined))
+        self.surfaces = refined_surfaces
+        self._emit([], [], [], f"mesh refinement L{self._mesh_grid_level}", surfaces_updated=True)
+
+        if rc >= RELAX_MAX_ITERATIONS * (self._MESH_MAX_GRID_LEVELS + 1):
+            return "NEXT"  # the safety cap on passes
+        if created > 0:
+            self._mesh_level_triangles += created
+            return "REPEAT"
+        if self._mesh_level_triangles == 0 or self._mesh_grid_level >= self._MESH_MAX_GRID_LEVELS:
+            return "NEXT"  # a whole level converged without any refinement
+        self._mesh_grid_level += 1
+        self._mesh_level_triangles = 0
+        return "REPEAT"
+
+    def _relax_structure_key(self, options: RelaxOptions, trim, last) -> tuple:
+        """Cache key of the relax problem STRUCTURE: whatever changes
+        measurement selection, block families or group membership. Values
+        (poses, mesh heights) are refreshed on reuse instead."""
+        mesh_topo = tuple((s.mesh.num_vertices, s.mesh.num_triangles) for s in self.surfaces if s.mesh is not None)
+        struct = (
+            options.ground_mesh, options.ground_plane, options.points_3d, options.any_intrinsics,
+            round(options.grid_fraction, 9),
+        )
+        return (
+            self._state, self.graph.size_nodes(), self.graph.size_edges(), self._edges_version,
+            mesh_topo, struct, trim, last,
+        )
+
+    def _global_relax(self, options: RelaxOptions, trim: Optional[int], last: bool) -> List[int]:
+        """One relax pass over every image: from the cached plan when its key
+        still holds, else from new groups (one group when ``last``)."""
+        key = self._relax_structure_key(options, trim, last)
+        plan = self._relax_plan if self._relax_plan is not None and self._relax_plan.key == key else None
+        if plan is not None:
+            self._relax_stage.reuse_plan(plan, self.graph, self.model_store, options)
+        else:
+            self._relax_stage.init(
+                self.graph, [], self.gps_positions, self.model_store,
+                relax_all=True, disable_parallelism=last, options=options,
+            )
+            if trim is not None:
+                self._relax_stage.trim_groups(trim)
+        self._relax_stage.run_all(self.graph, self.surfaces)
+        relaxed = self._relax_stage.finalize(self.graph, self.model_store, refit=False)
+        new_plan = self._relax_stage.last_plan
+        if new_plan is not None and (options.ground_mesh or options.ground_plane):
+            new_plan.key = key
+            self._relax_plan = new_plan
+        else:
+            self._relax_plan = None
+        surfaces = [s for s in self._relax_stage.surfaces() if s.mesh is not None or s.cloud]
+        if surfaces:
+            self.surfaces = self._merge_group_surfaces(surfaces)
+        return relaxed
+
+    def _run_initial_global_relax(self) -> str:
+        if self.skip_initial_global_relax:
+            return "NEXT"
+        relaxed = self._global_relax(RelaxOptions(orientation=True, ground_mesh=True), None, False)
+        self._emit([], [], relaxed, "initial global relax", surfaces_updated=True)
+        return "NEXT" if self._state_run_count >= RELAX_MAX_ITERATIONS else "REPEAT"
+
+    def _run_camera_parameter_relax(self) -> str:
+        if self.skip_camera_param_relax:
+            return "NEXT"
+        raise NotImplementedError(
+            f"pipeline state CAMERA_PARAMETER_RELAX is not ported yet: ROADMAP "
+            f"{_NOT_PORTED[PipelineState.CAMERA_PARAMETER_RELAX]}; set skip_camera_param_relax to pass it"
+        )
+
+    def _run_final_global_relax(self) -> str:
+        if self.skip_final_global_relax:
+            return "NEXT"
+        last = self._state_run_count >= FINAL_RELAX_MAX_ITERATIONS
+        relaxed = self._global_relax(RelaxOptions(orientation=True, ground_mesh=True), None, last)
+        self._emit([], [], relaxed, "final global relax", surfaces_updated=True)
+        return "NEXT" if last else "REPEAT"
+
     @staticmethod
     def _merge_group_surfaces(surfaces: List[SurfaceModel]) -> List[SurfaceModel]:
         """Per-group surfaces over the same mesh topology merge into one,
         vertex heights weighted by each group's point support."""
         if len(surfaces) <= 1:
             return surfaces
-        from opencalibration_tpu.surface.refine import merge_surface_models
-
         merged = merge_surface_models(surfaces)
         return [merged] if merged is not None else surfaces

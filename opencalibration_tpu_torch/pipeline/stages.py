@@ -10,7 +10,8 @@ opencalibration_tpu/pipeline/stages.py).
   Hamming top-2 kernel;
 * RelaxStage: spectral clustering into bounded groups, each built as one
   relax problem (with a depth-2 halo of neighbours when there is one group)
-  and solved on the device.
+  and solved on the device; a ``RelaxPlan`` carries the built problems and
+  their final damping from one pass of a relax state to the next.
 
 Every stage sorts its results into a canonical order before it changes the
 graph, so a run is deterministic. The graph, its payloads and the camera
@@ -57,11 +58,13 @@ from opencalibration_tpu_torch.ops import models as M
 from opencalibration_tpu_torch.ops import ransac as R
 from opencalibration_tpu_torch.ops.spatial import spatial_subsample
 from opencalibration_tpu_torch.parallel.group_solver import solve_groups
+from opencalibration_tpu_torch.relax.lm import DEFAULT_MAX_ITERATIONS
 from opencalibration_tpu_torch.relax.problem_builder import (
     RelaxOptions,
     _bucket,
     _pad_rows,
     apply_solution,
+    refresh_problem,
 )
 from opencalibration_tpu_torch.relax.relax import build_problem
 from opencalibration_tpu_torch.types.camera import CameraModel, stack_cameras
@@ -410,6 +413,21 @@ class RelaxGroupState:
     edge_ids: List[int]
 
 
+@dataclasses.dataclass
+class RelaxPlan:
+    """Cached problem structure for the repeat passes of one relax state:
+    the groups and their built problems. The pipeline owns the cache key
+    (graph, mesh and option structure); ``RelaxStage`` refreshes the
+    problems' values on each reuse (``problem_builder.refresh_problem``)
+    and warm-starts each group's damping from the previous pass."""
+
+    key: tuple
+    groups: List[RelaxGroupState]
+    builts: list  # Optional[BuiltProblem] per group
+    pre_solve: bool
+    warm_lambda: Optional[list] = None  # final damping per live group
+
+
 class RelaxStage:
     """Spectral-clustered group relaxation. Each group is built as one relax
     problem in ``dispatch`` (host work plus the per-row device pass) and
@@ -422,7 +440,10 @@ class RelaxStage:
         self._groups: List[RelaxGroupState] = []
         self._options = RelaxOptions()
         self._surfaces: List[SurfaceModel] = []
-        self._inflight = None  # (builts, live, pre_solve) between dispatch and join
+        self._plan: Optional[RelaxPlan] = None  # set by reuse_plan
+        self.last_plan: Optional[RelaxPlan] = None  # the plan of the last dispatch
+        self._inflight = None  # (builts, live, pre_solve, warm lambdas) between dispatch and join
+        self.max_lm_iterations: Optional[int] = None  # None: the LM's default cap
 
     def init(
         self,
@@ -430,9 +451,12 @@ class RelaxStage:
         node_ids: Sequence[int],
         gps_positions: Dict[int, np.ndarray],
         model_store: Dict[int, CameraModel],
+        relax_all: bool,
+        disable_parallelism: bool,
         options: RelaxOptions,
     ):
-        """Groups of the given nodes: one group up to POSE_GROUP_SIZE nodes,
+        """Groups of the given nodes (of every node with ``relax_all``): one
+        group when ``disable_parallelism`` or up to POSE_GROUP_SIZE nodes,
         spectral clusters beyond."""
         if options.any_intrinsics:
             raise NotImplementedError(
@@ -441,14 +465,17 @@ class RelaxStage:
         self._options = options
         self._surfaces = []
         self._groups = []
+        self._plan = None
+        self.last_plan = None
+        ids = sorted(graph.node_ids()) if relax_all else sorted(set(node_ids))
         ids = [
-            i for i in sorted(set(node_ids))
+            i for i in ids
             if graph.get_node(i) is not None
             and np.isfinite(np.asarray(graph.get_node(i).payload.position)).all()
         ]
         if not ids:
             return
-        if len(ids) <= POSE_GROUP_SIZE:
+        if disable_parallelism or len(ids) <= POSE_GROUP_SIZE:
             labels = np.zeros(len(ids), np.int64)
         else:
             idx_of = {nid: k for k, nid in enumerate(ids)}
@@ -524,48 +551,99 @@ class RelaxStage:
                 cam_models[mid] = model_store[mid]
         return RelaxGroupState(poses=poses, cam_models=cam_models, edge_ids=sorted(edge_ids))
 
-    def run_all(self, graph: MeasurementGraph):
+    def trim_groups(self, n: int):
+        """Keep only the n biggest groups."""
+        self._groups = self._groups[:n]
+
+    def reuse_plan(self, plan: RelaxPlan, graph: MeasurementGraph, model_store: Dict[int, CameraModel],
+                   options: RelaxOptions):
+        """Enter a repeat pass from a cached plan instead of ``init``: restore
+        the groups and refresh their poses and models from the graph;
+        ``dispatch`` then refreshes the built problems' values instead of
+        building them again."""
+        self._options = options
+        self._surfaces = []
+        self._groups = plan.groups
+        self._plan = plan
+        self.last_plan = None
+        for g in self._groups:
+            for pose in g.poses:
+                node = graph.get_node(pose.node_id)
+                if node is None:
+                    continue
+                pose.orientation = np.asarray(node.payload.orientation, np.float64).copy()
+                pose.position = np.asarray(node.payload.position, np.float64).copy()
+            for mid in list(g.cam_models):
+                if mid in model_store:
+                    g.cam_models[mid] = model_store[mid]
+
+    def run_all(self, graph: MeasurementGraph, previous_surfaces=()):
         """Build, solve and write back in one call."""
-        self.dispatch(graph)
+        self.dispatch(graph, previous_surfaces)
         self.join()
 
-    def dispatch(self, graph: MeasurementGraph):
+    def dispatch(self, graph: MeasurementGraph, previous_surfaces=()):
         """Build every group's problem (host work and the per-row device
-        pass); ``join`` solves them."""
+        pass), or refresh the reused plan's; ``join`` solves them."""
         self._inflight = None
         self._surfaces = [SurfaceModel() for _ in self._groups]
         if not self._groups:
             return
-        builts, pre_solve = [], False
-        with PerformanceMeasure("relax build problems"):
-            for g in self._groups:
-                built, pre = build_problem(
-                    graph, g.poses, g.cam_models, g.edge_ids, self._options, dtype=self.dtype, device=self.device
+        builts, pre_solve, warm = None, False, None
+        if self._plan is not None:
+            with PerformanceMeasure("relax refresh problems"):
+                ok = all(
+                    b is None or refresh_problem(b, graph, g.poses, g.cam_models, previous_surfaces, self._options)
+                    for g, b in zip(self._groups, self._plan.builts)
                 )
-                builts.append(built)
-                pre_solve = pre_solve or (pre and built is not None)
+            if ok:
+                builts, pre_solve, warm = self._plan.builts, self._plan.pre_solve, self._plan.warm_lambda
+                add_event_count("relax plan reuses", 1.0)
+            self._plan = None
+        if builts is None:
+            builts = []
+            with PerformanceMeasure("relax build problems"):
+                for g in self._groups:
+                    built, pre = build_problem(
+                        graph, g.poses, g.cam_models, g.edge_ids, self._options, previous_surfaces,
+                        dtype=self.dtype, device=self.device,
+                    )
+                    builts.append(built)
+                    pre_solve = pre_solve or (pre and built is not None)
         live = [i for i, b in enumerate(builts) if b is not None]
         if live:
-            self._inflight = (builts, live, pre_solve)
+            self.last_plan = RelaxPlan(key=(), groups=self._groups, builts=builts, pre_solve=pre_solve)
+            self._inflight = (builts, live, pre_solve, warm)
 
     def join(self):
         """Solve the dispatched groups and write the results back into the
         groups' working sets."""
         if self._inflight is None:
             return
-        builts, live, pre_solve = self._inflight
+        builts, live, pre_solve, warm = self._inflight
         self._inflight = None
         with PerformanceMeasure("relax solve"):
-            solved, infos = solve_groups([builts[i] for i in live], pre_solve)
+            solved, infos = solve_groups(
+                [builts[i] for i in live], pre_solve,
+                max_iterations=self.max_lm_iterations or DEFAULT_MAX_ITERATIONS, init_lambda=warm,
+            )
             add_event_count("lm iterations", float(sum(int(info.iterations) for info in infos)))
+        self.last_plan.warm_lambda = [info.final_lambda for info in infos]
         with PerformanceMeasure("relax writeback"):
             for params, i in zip(solved, live):
                 g = self._groups[i]
                 self._surfaces[i] = apply_solution(builts[i], params, g.poses)
 
-    def finalize(self, graph: MeasurementGraph) -> List[int]:
-        """Write the relaxed poses back to the graph (camera models are not
-        optimised in this state)."""
+    def finalize(self, graph: MeasurementGraph, model_store: Optional[Dict[int, CameraModel]] = None,
+                 refit: bool = False) -> List[int]:
+        """Write the relaxed poses back to the graph. No ported problem
+        optimises intrinsics, so camera models are never written and edges
+        never refitted (ROADMAP queue 1, B3)."""
+        if refit or self._options.any_intrinsics:
+            raise NotImplementedError(
+                "intrinsics write-back and edge refits are not ported yet: "
+                "ROADMAP queue 1, B3 (CAMERA_PARAMETER_RELAX)"
+            )
         optimized = []
         for g in self._groups:
             for pose in g.poses:

@@ -1,12 +1,13 @@
 """Residual blocks for bundle adjustment (twin of the relative-orientation,
-downwards-prior and plane-ray families of opencalibration_tpu/relax/blocks.py).
+downwards-prior, plane-ray and mesh-prior families of
+opencalibration_tpu/relax/blocks.py).
 
 A block family is a per-instance function ``resid_one(delta_local, data,
 params)``: ``delta_local`` is the instance's slice of the tangent step,
 ``data`` its measurements, and the function gathers current parameters by
 index. The LM solver maps it over instances with ``torch.func.vmap`` and
-differentiates it with ``torch.func.jacfwd`` at delta = 0. The pixel-error,
-mesh-prior and monotonicity families are not ported yet.
+differentiates it with ``torch.func.jacfwd`` at delta = 0. The pixel-error
+and monotonicity families are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from opencalibration_tpu_torch.ops.intersection import (
     ray_plane_intersection,
 )
 from opencalibration_tpu_torch.ops.quaternion import (
+    _cross,
     _norm,
     angle_between_unit_vectors,
     quat_angle,
@@ -262,4 +264,87 @@ def plane_ray_block(
     return BlockSpec(
         slots=slots, data=data, weight=weight, resid_one=fn,
         num_residuals=MAX_TRACK_RAYS * 3, huber_delta=huber_delta, name="plane_ray",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mesh priors: flatness between adjacent heights, an anchor to the pass-entry
+# heights, and smoothness across interior edges
+# ---------------------------------------------------------------------------
+
+
+def _difference_resid(delta, d, params: RelaxParams):
+    z1 = params.mesh_z[d["v_i"]] + delta[0]
+    to_vertex = params.mesh_z[d["v_j"]] + delta[1] - d["target"]
+    z2 = d["target"] + torch.where(d["target_is_vertex"], to_vertex, torch.zeros_like(to_vertex))
+    return (d["w"] * (z1 - z2))[None]
+
+
+def mesh_flat_block(layout: TangentLayout, v_i, v_j, weight, prior_weight=1e-4):
+    """Difference of the heights of the two ends of every mesh edge."""
+    dtype, dev = weight.dtype, weight.device
+    data = dict(
+        v_i=v_i, v_j=v_j, target=torch.zeros(v_i.shape, dtype=dtype, device=dev),
+        target_is_vertex=torch.ones(v_i.shape, dtype=torch.bool, device=dev),
+        w=torch.full(v_i.shape, prior_weight, dtype=dtype, device=dev),
+    )
+    return BlockSpec(
+        slots=torch.cat([layout.mesh_slot(v_i), layout.mesh_slot(v_j)], dim=-1), data=data,
+        weight=weight, resid_one=_difference_resid, num_residuals=1, name="mesh_flat",
+    )
+
+
+def mesh_anchor_block(layout: TangentLayout, v_i, z0, weight, prior_weight=1e-5):
+    """Each mesh height against its value ``z0`` at the start of the pass."""
+    dtype, dev = z0.dtype, z0.device
+    data = dict(
+        v_i=v_i, v_j=v_i, target=z0,
+        target_is_vertex=torch.zeros(v_i.shape, dtype=torch.bool, device=dev),
+        w=torch.full(v_i.shape, prior_weight, dtype=dtype, device=dev),
+    )
+    return BlockSpec(
+        slots=torch.cat([layout.mesh_slot(v_i), layout.mesh_slot(v_i)], dim=-1), data=data,
+        weight=weight, resid_one=_difference_resid, num_residuals=1, name="mesh_anchor",
+    )
+
+
+def _smooth_resid(delta, d, params: RelaxParams):
+    """Angle between the normals of the two triangles on edge AB (C and D
+    the opposite vertices). The reference's cost measures pi for coplanar
+    triangles whose C and D lie on opposite sides of AB, which is how every
+    interior edge is wired, so n2 is flipped by the 2-d sides of C and D and
+    coplanar always measures 0. The cross products are written out:
+    ``torch.linalg.cross`` fails under ``jacfwd``."""
+    def corner(xy, v, k):
+        return torch.cat([xy, (params.mesh_z[v] + delta[k])[None]])
+
+    A = corner(d["xyA"], d["vA"], 0)
+    B = corner(d["xyB"], d["vB"], 1)
+    C = corner(d["xyC"], d["vC"], 2)
+    D = corner(d["xyD"], d["vD"], 3)
+    AB = B - A
+    n1 = _cross(AB, C - A)
+    n2 = _cross(AB, D - A)
+    ab2 = d["xyB"] - d["xyA"]
+    side_c = ab2[0] * (d["xyC"][1] - d["xyA"][1]) - ab2[1] * (d["xyC"][0] - d["xyA"][0])
+    side_d = ab2[0] * (d["xyD"][1] - d["xyA"][1]) - ab2[1] * (d["xyD"][0] - d["xyA"][0])
+    one = torch.ones_like(side_c)
+    n2 = n2 * torch.where(side_c * side_d < 0, -one, one)
+    n1 = n1 / torch.clamp_min(_norm(n1), 1e-30)
+    n2 = n2 / torch.clamp_min(_norm(n2), 1e-30)
+    return (d["w"] * angle_between_unit_vectors(n1, n2))[None]
+
+
+def mesh_smooth_block(layout: TangentLayout, vA, vB, vC, vD, xyA, xyB, xyC, xyD, weight, prior_weight=1e-4):
+    """Normal angle across every interior edge AB, C and D opposite it."""
+    slots = torch.cat(
+        [layout.mesh_slot(vA), layout.mesh_slot(vB), layout.mesh_slot(vC), layout.mesh_slot(vD)], dim=-1
+    )
+    data = dict(
+        vA=vA, vB=vB, vC=vC, vD=vD, xyA=xyA, xyB=xyB, xyC=xyC, xyD=xyD,
+        w=torch.full(vA.shape, prior_weight, dtype=xyA.dtype, device=xyA.device),
+    )
+    return BlockSpec(
+        slots=slots, data=data, weight=weight, resid_one=_smooth_resid,
+        num_residuals=1, name="mesh_smooth",
     )

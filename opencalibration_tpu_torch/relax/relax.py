@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
-from opencalibration_tpu.types.graph import MeasurementGraph, NodePose
+from opencalibration_tpu.types.graph import MeasurementGraph, NodePose, SurfaceModel
 from opencalibration_tpu_torch.relax.problem_builder import (
     BuiltProblem,
     RelaxOptions,
@@ -22,14 +22,20 @@ def build_problem(
     cam_models: Dict[int, CameraModel],
     edge_ids: Sequence[int],
     options: RelaxOptions,
+    previous_surfaces: Sequence[SurfaceModel] = (),
+    grid_fraction: Optional[float] = None,
     *,
     dtype,
     device,
 ) -> Tuple[Optional[BuiltProblem], bool]:
     """Build (not solve) the relax problem of one working set. Returns
-    (BuiltProblem or None, whether a surface-only pre-solve comes first)."""
+    (BuiltProblem or None, whether a surface-only pre-solve comes first).
+    ``grid_fraction`` defaults to ``options.grid_fraction``."""
     if options.ground_mesh or options.ground_plane:
-        built = build_mesh_problem(graph, node_poses, cam_models, edge_ids, options, dtype=dtype, device=device)
+        built = build_mesh_problem(
+            graph, node_poses, cam_models, edge_ids, options, previous_surfaces, grid_fraction,
+            dtype=dtype, device=device,
+        )
         return built, True
     if options.points_3d:
         raise NotImplementedError(

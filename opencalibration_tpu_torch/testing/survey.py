@@ -1,5 +1,5 @@
-"""Synthetic aerial survey: a textured ground plane seen by a nadir camera
-grid, with exact ground truth (twin of ``make_texture``, ``camera_grid``,
+"""Synthetic aerial survey: a textured ground, flat or with sinusoidal relief,
+seen by a nadir camera grid, with exact ground truth (twin of ``make_texture``, ``camera_grid``,
 ``render_views`` and ``write_survey`` in tests/synthetic_survey.py, without
 JAX).
 
@@ -13,6 +13,7 @@ the pipeline reads.
 from __future__ import annotations
 
 import json
+import math
 import os
 
 import numpy as np
@@ -79,10 +80,19 @@ def knn_pairs(positions, neighbours=3):
     return (np.asarray([p[0] for p in pairs], np.int32), np.asarray([p[1] for p in pairs], np.int32))
 
 
+def relief_height(xy, amplitude, wavelength):
+    """Terrain height at ground points xy [..., 2]:
+    amplitude * sin(2 pi x / wavelength) * cos(2 pi y / wavelength)."""
+    k = 2.0 * math.pi / wavelength
+    return amplitude * (torch.sin(k * xy[..., 0]) * torch.cos(k * xy[..., 1]))
+
+
 def render_views(tex, positions, quats, *, width=IMG_W, height=IMG_H, focal=FOCAL,
-                 ground_extent=150.0, device):
-    """Render [C, height, width] float32 views of the textured plane z = 0
-    spanning [0, ground_extent]^2, one camera at a time on ``device``."""
+                 ground_extent=150.0, relief_amplitude=0.0, relief_wavelength=70.0, device):
+    """Render [C, height, width] float32 views of the textured ground
+    spanning [0, ground_extent]^2, one camera at a time on ``device``. The
+    ground is the plane z = 0, or with ``relief_amplitude`` the height field
+    ``relief_height``, reached by six fixed-point steps along each ray."""
     device = resolve_device(device)
     model = CameraModel.create(
         focal, (width / 2, height / 2), pixels_cols=width, pixels_rows=height, device=device
@@ -101,6 +111,10 @@ def render_views(tex, positions, quats, *, width=IMG_W, height=IMG_H, focal=FOCA
         t = torch.as_tensor(t, dtype=torch.float32, device=device)
         wd = quat_rotate(q, dirs)
         s = -t[2] / wd[:, 2]
+        if relief_amplitude:
+            for _ in range(6):
+                xy = t[None, :2] + s[:, None] * wd[:, :2]
+                s = (relief_height(xy, relief_amplitude, relief_wavelength) - t[2]) / wd[:, 2]
         ground = t[None] + s[:, None] * wd
         u = torch.clamp(ground[:, 0] / ground_extent * (size - 1), 0, size - 1)
         v = torch.clamp(ground[:, 1] / ground_extent * (size - 1), 0, size - 1)
@@ -117,12 +131,13 @@ def write_pgm(path, gray: np.ndarray):
 
 
 def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W, height=IMG_H,
-                 focal=FOCAL, texture=None, device):
+                 focal=FOCAL, texture=None, relief_amplitude=0.0, relief_wavelength=70.0, device):
     """Render the survey and write ``IMG_<i>.pgm`` files with JSON sidecars
     (latitude, longitude, altitude, focal_length_px, camera make and model)
     into ``directory``. The texture spans the survey's footprint plus 60 m;
     its size defaults to the reference fixture's (512 px per 150 m, at most
-    4096). Returns (paths, positions, quats)."""
+    4096). ``relief_amplitude`` and ``relief_wavelength`` (metres) shape the
+    terrain, as in ``render_views``. Returns (paths, positions, quats)."""
     positions, quats = camera_grid(rows, cols, spacing, seed + 1)
     extent = max(150.0, float(positions[:, :2].max()) + 60.0)
     if texture is None:
@@ -131,7 +146,8 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
     geo = GeoCoord()
     geo.set_origin(ORIGIN_LAT, ORIGIN_LON)
     views = render_views(tex, positions, quats, width=width, height=height, focal=focal,
-                         ground_extent=extent, device=device)
+                         ground_extent=extent, relief_amplitude=relief_amplitude,
+                         relief_wavelength=relief_wavelength, device=device)
     paths = []
     for i, img in enumerate((views.cpu().numpy() * 255).astype(np.uint8)):
         path = os.path.join(directory, f"IMG_{i:04d}.pgm")

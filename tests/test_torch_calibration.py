@@ -26,6 +26,7 @@ from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.pipeline import calibration as TC
 from opencalibration_tpu_torch.testing import survey as TS
 from tests import synthetic_survey as JS
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BENCH_FEATURES = 1024  # bench.calibration_step's extract_features(max_features=1024)
 HYPOTHESES = 2048

@@ -18,6 +18,7 @@ import torch
 from opencalibration_tpu.ops import features as JF
 from opencalibration_tpu_torch.ops import features as TF
 from tests.synthetic_survey import make_texture
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_FEATURES = 512
 

@@ -22,6 +22,7 @@ from opencalibration_tpu_torch.ops import distort as TD
 from opencalibration_tpu_torch.ops import models as TM
 from opencalibration_tpu_torch.ops import quaternion as TQ
 from opencalibration_tpu_torch.types import camera as TC
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float64": (np.float64, torch.float64, 1e-6), "float32": (np.float32, torch.float32, 1e-4)}
 

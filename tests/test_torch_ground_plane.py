@@ -32,6 +32,7 @@ from opencalibration_tpu_torch.relax import lm as TLM
 from opencalibration_tpu_torch.relax import problem_builder as TPB
 from opencalibration_tpu_torch.relax import relax as TR
 from opencalibration_tpu_torch.relax import tangent as TT
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DOWN = np.asarray([0.0, 1.0, 0.0, 0.0])
 F64 = torch.float64
@@ -303,7 +304,7 @@ def test_branches_not_ported_raise():
     graph, ids, j_models, _ = _graph({})
     t_models = {mid: interop.camera_from(m, "cpu") for mid, m in j_models.items()}
     edge_ids = sorted(graph.edge_ids())
-    for opts in (TPB.RelaxOptions(ground_mesh=True), TPB.RelaxOptions(points_3d=True),
-                 TPB.RelaxOptions(ground_plane=True, focal=True)):
+    for opts in (TPB.RelaxOptions(points_3d=True), TPB.RelaxOptions(ground_plane=True, focal=True),
+                 TPB.RelaxOptions(ground_mesh=True, focal=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TR.build_problem(graph, _poses(graph, ids), t_models, edge_ids, opts, dtype=F64, device="cpu")

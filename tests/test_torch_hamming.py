@@ -14,6 +14,7 @@ import torch
 from opencalibration_tpu.ops import hamming as JH
 from opencalibration_tpu.ops.hamming_pallas import match_descriptors_pallas
 from opencalibration_tpu_torch.ops import hamming as TH
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BITS = JH.DESCRIPTOR_BITS
 

@@ -110,3 +110,91 @@ def test_cpu_tensors_take_the_plain_version():
     assert hamming_cuda.hamming_top2.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _mesh_relax_problem(device, seed=0, dtype=torch.float32):
+    """A small ground-mesh relax on ``device``: 4 cameras over a refined
+    3 x 3 vertex mesh, plane-ray rows of 2 to 5 rays and the three mesh
+    priors. Returns (params, blocks, layout, free mask)."""
+    from opencalibration_tpu.surface.mesh import TriMesh
+    from opencalibration_tpu_torch.relax import blocks as B
+    from opencalibration_tpu_torch.relax import problem_builder as PB
+    from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid([0.0, 30.0, 60.0], [0.0, 30.0, 60.0])
+    verts = np.column_stack([xs.ravel(), ys.ravel(), rng.normal(scale=0.5, size=9)])
+    tris = np.asarray([[0, 1, 4], [0, 4, 3], [1, 2, 5], [1, 5, 4], [3, 4, 7], [3, 7, 6], [4, 5, 8], [4, 8, 7]])
+    mesh = TriMesh(verts, tris.astype(np.int32))
+    C, nb = 4, 64
+    layout = TangentLayout(C, 32, 0, 1)
+    floats, ids, flags = PB._tensors(dtype, device)
+    quats = np.tile([0.0, 1.0, 0.0, 0.0], (C, 1)) + rng.normal(scale=0.02, size=(C, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    mesh_z = np.zeros(32)
+    mesh_z[:9] = verts[:, 2]
+    params = RelaxParams.create(floats(quats), floats(rng.uniform([10, 10, 60], [50, 50, 80], size=(C, 3))),
+                                mesh_z=floats(mesh_z), dtype=dtype)
+    tri = rng.integers(0, len(tris), nb)
+    cam = np.stack([rng.permutation(C).tolist() + [0] for _ in range(nb)])
+    dirs = rng.normal(scale=0.2, size=(nb, 5, 3))
+    dirs[..., 2] = 1.0
+    blocks = [
+        B.plane_ray_block(layout, ids(tris[tri]), floats(verts[tris[tri]][:, :, :2]), ids(cam),
+                          flags(np.arange(5)[None] < rng.integers(2, 6, size=(nb, 1))), floats(np.ones(nb)),
+                          fixed_dir=floats(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True))),
+        B.downwards_prior_block(layout, ids(np.arange(C)), floats(np.ones(C))),
+    ] + PB._mesh_prior_blocks(layout, mesh, floats, ids)
+    free = layout.build_free_mask(mesh_free=np.arange(32) < 9, device=device)
+    return params, blocks, layout, free
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["jacobi", "block"])
+def test_cg_solve_is_bit_identical_across_runs(cuda, precond):
+    from opencalibration_tpu_torch.relax import lm
+
+    params, blocks, layout, free = _mesh_relax_problem(cuda)
+    runs = [lm.solve(params, blocks, layout, free, max_iterations=20, linear_solver="cg", cg_precond=precond)
+            for _ in range(2)]
+    (a, ia), (b, ib) = runs
+    assert int(ia.iterations) == int(ib.iterations) > 0
+    for f in ("quats", "mesh_z"):
+        assert torch.equal(getattr(a, f), getattr(b, f))
+    assert torch.isfinite(a.mesh_z).all() and torch.equal(ia.final_cost, ib.final_cost)
+
+
+@pytest.mark.gpu
+def test_ground_mesh_relax_cuda_matches_cpu(cuda, tmp_path):
+    """One MESH_REFINEMENT pass (ground-mesh relax, then refinement) from the
+    same INITIAL_PROCESSING graph on CUDA and on the CPU, both in float32:
+    orientations within 0.1 degrees, equal mesh topology."""
+    import copy
+
+    from opencalibration_tpu_torch.ops import ransac as R
+    from opencalibration_tpu_torch.ops.quaternion import quat_angle, quat_conjugate, quat_multiply
+    from opencalibration_tpu_torch.pipeline import stages as ST
+    from opencalibration_tpu_torch.pipeline.pipeline import Pipeline
+    from opencalibration_tpu_torch.testing import survey as S
+
+    paths, _, _ = S.write_survey(str(tmp_path), 2, 3, relief_amplitude=8.0, relief_wavelength=70.0, device="cpu")
+    uniforms = R.default_uniforms(ST.LINK_HYPOTHESES, 4, R.DEFAULT_SEED, "cpu")
+    cpu = Pipeline(batch_size=3, device="cpu", ransac_uniforms=uniforms)
+    cpu.add(paths)
+    while cpu.get_state() == "INITIAL_PROCESSING":
+        cpu.iterate_once()
+    gpu = Pipeline(batch_size=3, device="cuda", ransac_uniforms=uniforms)
+    for attr in ("graph", "surfaces", "gps_positions", "model_store"):
+        setattr(gpu, attr, copy.deepcopy(getattr(cpu, attr)))
+    gpu.reset_state("MESH_REFINEMENT")
+    cpu.iterate_once()
+    gpu.iterate_once()
+    for p in (cpu, gpu):
+        assert p.get_state() == "MESH_REFINEMENT" and len(p.surfaces) == 1
+    a, b = cpu.surfaces[0].mesh, gpu.surfaces[0].mesh
+    np.testing.assert_array_equal(a.triangles, b.triangles)
+    nodes = {n.payload.path: n.payload.orientation for _, n in gpu.graph.nodes()}
+    for _, n in cpu.graph.nodes():
+        qa = torch.as_tensor(n.payload.orientation, dtype=torch.float64)
+        qb = torch.as_tensor(nodes[n.payload.path], dtype=torch.float64)
+        assert float(np.degrees(quat_angle(quat_multiply(qa, quat_conjugate(qb))))) < 0.1

@@ -25,6 +25,7 @@ from opencalibration_tpu.ops import quaternion as JQ
 from opencalibration_tpu.pipeline.pipeline import Pipeline as JPipeline
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.testing import survey as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ORIENTATION_RAD = 1e-3
 POSITION_M = 1e-9
@@ -143,10 +144,16 @@ def test_unreadable_path_is_skipped(survey, tmp_path):
 def test_later_states_raise_and_device_is_required():
     p = Pipeline(device="cpu")
     assert not p.resume_from_state(PipelineState.FINAL_GLOBAL_RELAX)  # no skipping ahead
-    p.reset_state(PipelineState.MESH_REFINEMENT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    p.reset_state(PipelineState.CAMERA_PARAMETER_RELAX)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, B3"):
         p.iterate_once()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        p.run_to_completion()
+    p.skip_camera_param_relax = True
+    p.skip_final_global_relax = True
+    assert p.iterate_once() == PipelineState.FINAL_GLOBAL_RELAX
+    assert p.iterate_once() == PipelineState.GENERATE_THUMBNAIL
+    with pytest.raises(NotImplementedError, match="Slice C"):
         p.run_to_completion()
     assert p.resume_from_state(PipelineState.INITIAL_PROCESSING)
     with pytest.raises(ValueError):
@@ -157,8 +164,9 @@ def test_later_states_raise_and_device_is_required():
 
 
 def test_initial_processing_without_jax(tmp_path):
-    """In a process where ``import jax`` fails, the port runs INITIAL_PROCESSING
-    on a 2 x 2 survey and no jax module is loaded."""
+    """In a process where ``import jax`` fails, the port runs a 2 x 2 survey
+    from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX (camera parameters
+    skipped) and no jax module is loaded."""
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None  # any import of jax raises
@@ -166,18 +174,24 @@ def test_initial_processing_without_jax(tmp_path):
         from opencalibration_tpu_torch.pipeline.pipeline import Pipeline
         paths, _, _ = survey.write_survey({str(tmp_path)!r}, 2, 2, device="cpu")
         p = Pipeline(batch_size=4, device="cpu")
+        p.skip_camera_param_relax = True
         p.add(paths)
-        while p.get_state() == "INITIAL_PROCESSING":
+        states = []
+        while p.get_state() != "GENERATE_THUMBNAIL":
+            states.append(p.get_state())
             p.iterate_once()
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
-        print(p.get_state(), p.graph.size_nodes(), p.graph.size_edges(), len(p.surfaces), loaded)
+        print(p.get_state(), p.graph.size_nodes(), p.graph.size_edges(), len(p.surfaces),
+              ",".join(sorted(set(states))), loaded)
     """)
     env = dict(os.environ)
     env.pop("OC_TPU_COMPILE_CACHE", None)  # the port sets it itself
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in this process (tests/torch_threads.py)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,
                        cwd=root, env=env)
     assert r.returncode == 0, r.stdout + r.stderr
-    state, nodes, edges, surfaces, loaded = r.stdout.split(maxsplit=4)
-    assert (state, nodes, surfaces, loaded.strip()) == ("MESH_REFINEMENT", "4", "1", "[]")
+    state, nodes, edges, surfaces, states, loaded = r.stdout.split(maxsplit=5)
+    assert (state, nodes, surfaces, loaded.strip()) == ("GENERATE_THUMBNAIL", "4", "1", "[]")
+    assert states == ",".join(sorted(PipelineState.ORDER[:5]))
     assert int(edges) >= 4

@@ -15,6 +15,7 @@ import torch
 
 from opencalibration_tpu.ops import ransac as JR
 from opencalibration_tpu_torch.ops import ransac as TR
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K = 512
 

@@ -20,6 +20,7 @@ from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.relax import blocks as TB
 from opencalibration_tpu_torch.relax import lm as TL
 from opencalibration_tpu_torch.relax import tangent as TT
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DOWN = np.asarray([0.0, 1.0, 0.0, 0.0])
 

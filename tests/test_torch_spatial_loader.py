@@ -24,6 +24,7 @@ from opencalibration_tpu_torch.extract import image_loader as TL
 from opencalibration_tpu_torch.ops import features as TF
 from opencalibration_tpu_torch.ops import spatial as TS
 from opencalibration_tpu_torch.testing import survey as TSv
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _features(kind, n=600, width=320.0, height=240.0, seed=0):
