@@ -3,11 +3,20 @@ NVIDIA GPU.
 
 Phases, each printing its lines:
 
-1. device: the card's name, count and power limit;
-2. build: ``csrc/hamming_top2.cu`` compiled by nvcc from this checkout;
+1. device: the card's name, count and power limit, and that no module of
+   JAX or of the JAX package ``opencalibration_tpu`` is loaded (checked
+   again at the end);
+2. build: ``csrc/hamming_top2.cu`` compiled by nvcc from this checkout, the
+   compile time, ptxas's registers, shared memory and spills, and the
+   warpgroup MMA instructions in its SASS (where the toolkit has
+   ``cuobjdump``);
 3. the Hamming top-2 kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shape [42, 2048, 2048] and on edge cases,
-   then both timed with CUDA events;
+   bit for bit and twice, on the contract's edge cases, on a set 2 split over
+   a cluster with ties across splits, and at the main path's shapes
+   [42, 2048, 2048] and [16, 1024, 1024]; then at both shapes the kernel,
+   ``match_descriptors``, the plain version and ``torch._int_mm`` (the +-1
+   product alone, the library yardstick) timed with CUDA events, beside the
+   kernel's bound;
 4. ``calibration_step`` on CUDA against the same call on the CPU, on a
    2 x 3 survey at 320 x 240;
 5. ``calibration_step`` at full size: 24 images at 1600 x 1200, 2048
@@ -40,7 +49,8 @@ Phases, each printing its lines:
 The ``kernels`` line gives each kernel's launches on the main path, phase 8
 (INITIAL_PROCESSING through FINAL_GLOBAL_RELAX), and on the paths of
 phases 7 and 5, each taken with the counter set to 0 just before the path
-and read just after it. Run from the repository root with
+and read just after it, and phase 3's times and bounds (``*_link`` at the
+link's shape). Run from the repository root with
 ``python3 chip_smoke.py``. Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
 exits with 1 before doing anything. The last line of standard output is
@@ -50,6 +60,8 @@ exits with 1 before doing anything. The last line of standard output is
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,6 +81,7 @@ from opencalibration_tpu_torch.pipeline import calibration as C
 from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.relax import lm as LM
+from opencalibration_tpu_torch.testing import hamming_cases as HC
 from opencalibration_tpu_torch.testing import survey as S
 from opencalibration_tpu_torch.utils import performance
 
@@ -96,6 +109,9 @@ HEIGHT_MEDIAN_M, HEIGHT_MAX_M = 1.0, 4.0
 CG_VS_CHOLESKY_DEG, CG_VS_CHOLESKY_M = 0.05, 0.1
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
+# NVIDIA's published H100 SXM peaks (dense, at 700 W): int8 tensor cores and
+# device memory
+H100_INT8_OPS, H100_BYTES_PER_S = 1979e12, 3.35e12
 
 
 def _sync():
@@ -127,77 +143,35 @@ def phase_device():
     print(f"[device] {name}, {count} device(s); python {sys.version.split()[0]}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
+    _assert_standalone("device")
     return name, count, smi
+
+
+def _assert_standalone(label):
+    """The port stands alone: no module of JAX or of the JAX package
+    (exactly ``opencalibration_tpu``, not the port's prefix) is loaded."""
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu") and sys.modules[m] is not None)
+    print(f"[{label}] modules of jax / opencalibration_tpu loaded: {loaded or 'none'}")
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
 
 
 def phase_build():
     info = hamming_cuda.build()
     print(f"[build] {info.seconds:.2f} s -> {info.library}")
     for line in info.ptxas.splitlines():
-        if "ptxas info" in line or "spill" in line:
+        if "ptxas info" in line or "spill" in line or "arning" in line:
             print(f"[build]   {line.strip()}")
-
-
-def _random_words(rng, shape, garbage_padding=False):
-    """Packed descriptors as int32 bit patterns; with garbage_padding the 26
-    bits above the 486 real ones are random too."""
-    words = rng.integers(0, 2**32, size=shape + (16,), dtype=np.uint64).astype(np.uint32)
-    if not garbage_padding:
-        words[..., 15] &= np.uint32((1 << 6) - 1)
-    return torch.from_numpy(words.view(np.int32))
-
-
-def _flip_bits(rng, words, rate):
-    """Copies of packed words with each of the 512 bits flipped at ``rate``."""
-    flips = rng.random(words.shape + (32,)) < rate
-    mask = np.sum(flips.astype(np.uint64) << np.arange(32, dtype=np.uint64), axis=-1)
-    return torch.from_numpy((words.numpy().view(np.uint32) ^ mask.astype(np.uint32)).view(np.int32))
-
-
-def _kernel_cases(rng):
-    """(name, packed1, packed2, valid1, valid2) on the CPU."""
-    def bits(n):
-        return torch.from_numpy(rng.integers(0, 2, size=(n, H.DESCRIPTOR_BITS)).astype(bool))
-
-    def ones(n):
-        return torch.ones(n, dtype=torch.bool)
-
-    cases = []
-    b1, b2 = bits(200), bits(300)
-    cases.append(("agreement 200x300", H.pack_bits(b1), H.pack_bits(b2), ones(200), ones(300)))
-    b1 = bits(64)
-    b2 = torch.cat([b1, bits(64)])
-    v2 = torch.tensor([False] * 64 + [True] * 64)
-    cases.append(("validity 64+64", H.pack_bits(b1), H.pack_bits(b2), ones(64), v2))
-    cases.append(("non-aligned 130x257", H.pack_bits(bits(130)), H.pack_bits(bits(257)),
-                  ones(130), ones(257)))
-    # every row of set 1 appears twice in set 2: a tie for best at distance 0
-    p1 = _random_words(rng, (96,))
-    p2 = torch.cat([_flip_bits(rng, p1[:48], 0.02), p1, p1])
-    cases.append(("forced ties", p1, p2, ones(96), ones(p2.shape[0])))
-    p1, p2 = _random_words(rng, (70,)), _random_words(rng, (90,))
-    cases.append(("no valid column", p1, p2, ones(70), torch.zeros(90, dtype=torch.bool)))
-    v2 = torch.zeros(90, dtype=torch.bool)
-    v2[37] = True
-    cases.append(("one valid column", p1, p2, ones(70), v2))
-    p1 = _random_words(rng, (150,), garbage_padding=True)
-    p2 = torch.cat([_flip_bits(rng, p1, 0.05), _random_words(rng, (100,), garbage_padding=True)])
-    cases.append(("garbage padding bits", p1, p2, ones(150), ones(250)))
-    return cases
-
-
-def _main_path_case(rng, pairs, n):
-    """[pairs, n, 16] descriptors where 3/4 of set 2 are noisy copies of set 1
-    in shuffled order, with some invalid rows on both sides."""
-    p1 = _random_words(rng, (pairs, n))
-    p2 = _random_words(rng, (pairs, n))
-    m = 3 * n // 4
-    for k in range(pairs):
-        perm = torch.from_numpy(rng.permutation(n)[:m])
-        p2[k, perm] = _flip_bits(rng, p1[k, :m], 0.08)
-    v1 = torch.from_numpy(rng.random((pairs, n)) < 0.97)
-    v2 = torch.from_numpy(rng.random((pairs, n)) < 0.97)
-    return p1, p2, v1, v2
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        print("[build] cuobjdump not found: SASS not shown")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(info.library)], capture_output=True, text=True).stdout
+    mma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "GMMA" in line]
+    print(f"[build] SASS: {len(mma)} warpgroup MMA instructions, e.g. {sorted(set(mma))[:2]}")
+    if not mma:
+        raise AssertionError("the kernel's SASS holds no warpgroup MMA instruction")
 
 
 def _cuda_ms(fn, iters):
@@ -214,27 +188,71 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _timed(p1, p2, v1, v2, label):
-    """match_descriptors through the kernel and through the plain version, 20
-    launches each, in the order plain, kernel, kernel, plain."""
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = H.match_descriptors if which == "kernel" else H.match_descriptors_reference
-        runs[which].append(_cuda_ms(lambda: fn(p1, p2, v1, v2), 20))
-    print(f"[kernel] match_descriptors at {label}: kernel {runs['kernel']} ms, "
-          f"plain {runs['plain']} ms (CUDA events, 20 launches each, plain/kernel/kernel/plain)")
-    return statistics.mean(runs["kernel"]), statistics.mean(runs["plain"])
+def _bound(pairs, n1, n2):
+    """The least time the card could take for one launch at [pairs, n1, n2]:
+    the larger of the int8 operations (a 512-deep multiply-add per distance)
+    over the int8 tensor-core peak and the bytes (packed words and valid2 in,
+    three int32 results out) over the memory rate. Returns (ms, bound_by)."""
+    ops = 2.0 * pairs * n1 * n2 * H.PADDED_BITS
+    nbytes = pairs * ((n1 + n2) * 4 * H.DESCRIPTOR_WORDS + n2 + 3 * 4 * n1)
+    t_ops, t_bytes = ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernel():
+def _int_mm(p1, p2):
+    """One ``torch._int_mm`` per pair on the unpacked +-1 operands (the
+    similarity product only, no top-2), or None where it does not run."""
+    a = H._unpack_pm1(p1, H.DESCRIPTOR_BITS, torch.int8)
+    b = H._unpack_pm1(p2, H.DESCRIPTOR_BITS, torch.int8)
+    b_t = [b[k].t() for k in range(b.shape[0])]
+    try:
+        sim = torch._int_mm(a[0], b_t[0])
+    except RuntimeError as e:
+        print(f"[kernel] torch._int_mm: not available ({str(e).splitlines()[0]})")
+        return None
+    best = torch.amin((H.DESCRIPTOR_BITS - sim) >> 1, dim=1)
+    plain = torch.amin(H.hamming_matrix(p1[0], p2[0]), dim=1)
+    print(f"[kernel] torch._int_mm on pair 0 gives the plain version's distances: {torch.equal(best, plain)}")
+    return lambda: [torch._int_mm(a[k], b_t[k]) for k in range(len(b_t))]
+
+
+def _timed(p1, p2, v1, v2, label, smi):
+    """At one shape: the kernel alone, ``match_descriptors`` through it, the
+    plain version and the library product, 20 launches each with CUDA events,
+    in the order plain, kernel, match, library, library, match, kernel,
+    plain. Returns the means and the bound."""
+    fns = {
+        "plain": lambda: H.match_descriptors_reference(p1, p2, v1, v2),
+        "kernel": lambda: hamming_cuda.hamming_top2(p1, p2, v2),
+        "match": lambda: H.match_descriptors(p1, p2, v1, v2),
+        "library": _int_mm(p1, p2),
+    }
+    runs = {k: [] for k in fns}
+    for which in ("plain", "kernel", "match", "library", "library", "match", "kernel", "plain"):
+        if fns[which] is not None:
+            runs[which].append(_cuda_ms(fns[which], 20))
+    bound_ms, bound_by = _bound(*p1.shape[:2], p2.shape[1])
+    ms = statistics.mean(runs["kernel"])
+    library_ms = statistics.mean(runs["library"]) if runs["library"] else None
+    print(f"[kernel] {label} on {smi}: kernel {runs['kernel']} ms, match_descriptors {runs['match']} ms, "
+          f"plain {runs['plain']} ms, torch._int_mm (+-1 product only, no top-2) "
+          f"{runs['library'] or 'not available'} ms (CUDA events, 20 launches each)")
+    print(f"[kernel] {label}: bound {bound_ms:.6f} ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f} % of it")
+    return dict(ms=ms, match_ms=statistics.mean(runs["match"]), plain_ms=statistics.mean(runs["plain"]),
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms, library_ms=library_ms)
+
+
+def phase_kernel(smi):
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    calib = ("calibration step [42, 2048, 2048]",) + _main_path_case(rng, 42, 2048)
-    link = ("pipeline link chunk [16, 1024, 1024]",) + _main_path_case(rng, ST.LINK_CHUNK, ST.LINK_SUBSET)
+    calib = ("calibration step [42, 2048, 2048]",) + HC.main_path_case(rng, 42, 2048)
+    link = ("pipeline link chunk [16, 1024, 1024]",) + HC.main_path_case(rng, ST.LINK_CHUNK, ST.LINK_SUBSET)
+    split = ("set 2 split over a cluster, ties across splits",) + HC.split_ties_case(rng)
     max_err = 0.0
-    for name, p1, p2, v1, v2 in _kernel_cases(rng) + [calib, link]:
+    for name, p1, p2, v1, v2 in HC.kernel_cases(rng) + [split, calib, link]:
         p1, p2, v1, v2 = (t.to(dev).contiguous() for t in (p1, p2, v1, v2))
         top2 = hamming_cuda.hamming_top2(p1, p2, v2)
+        again = hamming_cuda.hamming_top2(p1, p2, v2)
         top2_ref = H.hamming_top2_reference(p1, p2, v2)
         got = H.match_descriptors(p1, p2, v1, v2)
         want = H.match_descriptors_reference(p1, p2, v1, v2)
@@ -244,13 +262,16 @@ def phase_kernel():
             if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
                 bad = int((g != w).sum()) if g.shape == w.shape else -1
                 raise AssertionError(f"kernel != plain version on {name}: {label}, {bad} entries differ")
+        if not all(torch.equal(g, r) for g, r in zip(top2, again)):
+            raise AssertionError(f"two launches differ on {name}")
         err = float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
         max_err = max(max_err, err)
-        print(f"[kernel] {name}: bit-exact ({int(got[2].sum())} of {got[2].numel()} rows matched)")
+        print(f"[kernel] {name}: bit-exact, twice ({int(got[2].sum())} of {got[2].numel()} rows matched, "
+              f"{int((top2[0] == top2[1]).sum())} ties for best)")
 
-    ms, plain_ms = _timed(*(t.to(dev).contiguous() for t in calib[1:]), "[42, 2048, 2048]")
-    ms_link, plain_ms_link = _timed(*(t.to(dev).contiguous() for t in link[1:]), "[16, 1024, 1024]")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, ms_link=ms_link, plain_ms_link=plain_ms_link)
+    out = _timed(*(t.to(dev).contiguous() for t in calib[1:]), "[42, 2048, 2048]", smi)
+    link_out = _timed(*(t.to(dev).contiguous() for t in link[1:]), "[16, 1024, 1024]", smi)
+    return dict(max_abs_err=max_err, **out, **{f"{k}_link": v for k, v in link_out.items()})
 
 
 def phase_cuda_vs_cpu():
@@ -647,9 +668,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    name, count, _ = phase_device()
+    name, count, smi = phase_device()
     phase_build()
-    kernel = phase_kernel()
+    kernel = phase_kernel(smi)
     phase_cuda_vs_cpu()
     step_launches = phase_full_size()
     phase_pipeline_cuda_vs_cpu()
@@ -659,6 +680,7 @@ def main():
     del p
     with tempfile.TemporaryDirectory() as d:
         mesh_launches = phase_mesh_refinement(d)
+    _assert_standalone("end")
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
         launches=mesh_launches,

@@ -14,8 +14,8 @@ Decoding, on the host:
   the reference does; without cv2 they raise.
 * The Lab thumbnail is not made (``node.thumbnail`` stays ``None``).
 
-``pad_gray_batch``, ``camera_model_kwargs`` and ``DecodedImage`` are the JAX
-package's own numpy code. ``batch_sparse_masks`` runs the radius NMS on the
+``pad_gray_batch``, ``camera_model_kwargs`` and ``DecodedImage`` are copies
+of the JAX package's numpy code. ``batch_sparse_masks`` runs the radius NMS on the
 device over a whole extraction batch and pulls the outputs to the host once;
 ``features_from_device`` turns one image's slice into a ``FeatureSet`` in
 original pixel coordinates, with uint32 descriptors as the graph holds them.
@@ -23,6 +23,7 @@ original pixel coordinates, with uint32 descriptors as the graph holds them.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Dict, Optional
@@ -30,18 +31,69 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from opencalibration_tpu.extract.image_loader import (  # noqa: F401  (re-exported)
-    MAX_LENGTH_PIXELS,
-    NMS_PIXEL_RADIUS,
-    DecodedImage,
-    camera_model_kwargs,
-    pad_gray_batch,
-)
-from opencalibration_tpu.extract.metadata import extract_metadata
-from opencalibration_tpu.types.graph import FeatureSet, ImageNode
 from opencalibration_tpu_torch import interop
+from opencalibration_tpu_torch.extract.camera_database import CameraDatabase, apply_database_entry
+from opencalibration_tpu_torch.extract.metadata import extract_metadata
 from opencalibration_tpu_torch.ops.spatial import nms_radius
+from opencalibration_tpu_torch.types.graph import FeatureSet, ImageMetadata, ImageNode
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
+
+MAX_LENGTH_PIXELS = 1600  # reference extract_features.cpp:14
+NMS_PIXEL_RADIUS = 8.0  # reference extract_features.cpp:15
+
+
+@dataclasses.dataclass
+class DecodedImage:
+    """Host-side decode result, ready for batched device extraction."""
+
+    node: ImageNode
+    gray: np.ndarray  # [H, W] uint8, downscaled (device normalizes)
+    scale: float  # original px = gray px / scale
+
+
+def camera_model_kwargs(md: ImageMetadata, database: Optional[CameraDatabase] = None):
+    """Initial camera model parameters with DB priors
+    (reference extract_image.cpp:60-80)."""
+    kw = dict(
+        focal_length_pixels=md.focal_length_px,
+        principal_point=(md.width_px / 2.0, md.height_px / 2.0),
+        radial_distortion=(0.0, 0.0, 0.0),
+        tangential_distortion=(0.0, 0.0),
+        pixels_cols=float(md.width_px),
+        pixels_rows=float(md.height_px),
+    )
+    db = database or CameraDatabase.instance()
+    entry = db.lookup(md)
+    if entry is not None:
+        kw = apply_database_entry(entry, md, kw)
+    return kw
+
+
+def pad_gray_batch(grays: list, target_hw=None):
+    """Stack variable-size grayscale arrays into one padded batch.
+
+    Returns (batch [B, H, W] of the input dtype — uint8 from the decode
+    path — and sizes [B, 2]). Padding is edge replication so the detector
+    border suppression handles it.
+    """
+    if target_hw is None:
+        H = max(g.shape[0] for g in grays)
+        W = max(g.shape[1] for g in grays)
+    else:
+        H, W = target_hw
+    out = np.zeros((len(grays), H, W), grays[0].dtype if grays else np.uint8)
+    sizes = np.zeros((len(grays), 2), np.int32)
+    for i, g in enumerate(grays):
+        h, w = g.shape
+        out[i, :h, :w] = g
+        # edge-replicate padding
+        if h < H:
+            out[i, h:, :w] = g[-1:, :]
+        if w < W:
+            out[i, :, w:] = out[i, :, w - 1 : w]
+        sizes[i] = (h, w)
+    return out, sizes
+
 
 NETPBM_MAGIC = (b"P5", b"P6")
 # magic, width, height, maxval, each after whitespace or '#' comment lines,

@@ -1,10 +1,11 @@
 """Hand-written CUDA Hamming top-2 kernel (twin of
 opencalibration_tpu/ops/hamming_pallas.py).
 
-``csrc/hamming_top2.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use
-into a shared library with a plain C interface, loaded with ``ctypes``. The
-library goes to ``build/kernels/`` beside the package, named by a hash of
-the source, so an edited kernel is rebuilt and an unchanged one is reused.
+``csrc/hamming_top2.cu`` (int8 ``wgmma`` on the tensor cores) is compiled by
+``nvcc`` for ``sm_90a`` at first use into a shared library with a plain C
+interface, loaded with ``ctypes``. The library goes to ``build/kernels/``
+beside the package, named by a hash of the source, so an edited kernel is
+rebuilt and an unchanged one is reused.
 
 ``hamming_top2`` takes CUDA tensors only and raises on anything else: the
 plain version (``hamming.hamming_top2_reference``) is chosen by
@@ -100,7 +101,8 @@ def hamming_top2(packed1, packed2, valid2):
     (the uint32 words' bit patterns), valid2 [P, N2] / [N2] bool, all
     contiguous on one CUDA device. Returns (best, second, idx) int32 [P, N1]
     (or [N1]), bit-exact with ``hamming.hamming_top2_reference``. One launch
-    covers every pair; it runs on the current stream and is not awaited."""
+    (of one thread-block cluster per set-1 tile where set 2 is split) covers
+    every pair; it runs on the current stream and is not awaited."""
     squeeze = packed1.dim() == 2
     if squeeze:
         packed1, packed2, valid2 = packed1[None], packed2[None], valid2[None]

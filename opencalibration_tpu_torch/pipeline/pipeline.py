@@ -1,8 +1,8 @@
 """Pipeline facade and state machine (twin of
 opencalibration_tpu/pipeline/pipeline.py), through FINAL_GLOBAL_RELAX.
 
-``Pipeline(device=...)`` takes image paths with ``add`` and advances with
-``iterate_once``. INITIAL_PROCESSING is software-pipelined across calls: batch
+``Pipeline()`` (on the card; ``device="cpu"`` to run on the CPU) takes image
+paths with ``add`` and advances with ``iterate_once``. INITIAL_PROCESSING is software-pipelined across calls: batch
 N loads while batch N-1 links and batch N-2 relaxes; the state repeats until
 every image is loaded, linked and relaxed. MESH_REFINEMENT then alternates a
 ground-mesh relax with one point-density refinement of the mesh, level by
@@ -26,13 +26,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from opencalibration_tpu.geo.geo_coord import GeoCoord
-from opencalibration_tpu.surface.mesh import build_minimal_mesh
-from opencalibration_tpu.surface.refine import merge_surface_models, refine_by_point_density
-from opencalibration_tpu.types.graph import MeasurementGraph, SurfaceModel
+from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
 from opencalibration_tpu_torch.pipeline.stages import LinkStage, LoadStage, RelaxStage
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
+from opencalibration_tpu_torch.surface.mesh import build_minimal_mesh
+from opencalibration_tpu_torch.surface.refine import merge_surface_models, refine_by_point_density
 from opencalibration_tpu_torch.types.camera import CameraModel
+from opencalibration_tpu_torch.types.graph import MeasurementGraph, SurfaceModel
 from opencalibration_tpu_torch.utils.device import resolve_device
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
 
@@ -108,12 +108,13 @@ class StepCompletionInfo:
 
 
 class Pipeline:
-    def __init__(self, batch_size: int = 10, parallelism: int = 8, *, device,
+    def __init__(self, batch_size: int = 10, parallelism: int = 8, *, device="cuda",
                  dtype=torch.float32, ransac_uniforms=None):
-        """``device`` is required ('cuda' or 'cpu'); a CUDA device without a
-        card raises. ``dtype`` is the relax problems' float type.
-        ``ransac_uniforms`` [2048, 4] replaces the link's seeded RANSAC draw
-        (parity tests pass the reference's)."""
+        """``device`` is the card unless the caller asks for ``"cpu"``; a CUDA
+        device without a card raises, and ``None`` is an error. ``dtype`` is
+        the relax problems' float type. ``ransac_uniforms`` [2048, 4]
+        replaces the link's seeded RANSAC draw (parity tests pass the
+        reference's)."""
         self.device = resolve_device(device)
         self.dtype = dtype
         self.batch_size = batch_size

@@ -32,16 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from opencalibration_tpu.geo.geo_coord import GeoCoord
-from opencalibration_tpu.ops.clustering import spectral_cluster
-from opencalibration_tpu.types.graph import (
-    CameraRelations,
-    ImageNode,
-    MeasurementGraph,
-    NodePose,
-    RelationType,
-    SurfaceModel,
-)
 from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.extract.image_loader import (
     DecodedImage,
@@ -51,11 +41,13 @@ from opencalibration_tpu_torch.extract.image_loader import (
     load_and_decode,
     pad_gray_batch,
 )
+from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
 from opencalibration_tpu_torch.ops import distort as D
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import models as M
 from opencalibration_tpu_torch.ops import ransac as R
+from opencalibration_tpu_torch.ops.clustering import spectral_cluster
 from opencalibration_tpu_torch.ops.spatial import spatial_subsample
 from opencalibration_tpu_torch.parallel.group_solver import solve_groups
 from opencalibration_tpu_torch.relax.lm import DEFAULT_MAX_ITERATIONS
@@ -68,6 +60,14 @@ from opencalibration_tpu_torch.relax.problem_builder import (
 )
 from opencalibration_tpu_torch.relax.relax import build_problem
 from opencalibration_tpu_torch.types.camera import CameraModel, stack_cameras
+from opencalibration_tpu_torch.types.graph import (
+    CameraRelations,
+    ImageNode,
+    MeasurementGraph,
+    NodePose,
+    RelationType,
+    SurfaceModel,
+)
 from opencalibration_tpu_torch.utils.device import resolve_device
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, add_event_count
 
@@ -142,7 +142,7 @@ class LoadStage:
     """Decode a batch of paths on host threads, extract their features in one
     device call, turn them into graph nodes."""
 
-    def __init__(self, *, device, max_features: int = MAX_FEATURES):
+    def __init__(self, *, device="cuda", max_features: int = MAX_FEATURES):
         self.device = resolve_device(device)
         self.max_features = max_features
         self._decoded: List[Optional[DecodedImage]] = []
@@ -278,7 +278,7 @@ class LinkStage:
     every pair, as the reference draws one ``jax.random`` block per call;
     by default ``ransac.default_uniforms`` makes them from its seed."""
 
-    def __init__(self, *, device, uniforms=None):
+    def __init__(self, *, device="cuda", uniforms=None):
         self.device = resolve_device(device)
         if uniforms is None:
             uniforms = R.default_uniforms(
@@ -434,7 +434,7 @@ class RelaxStage:
     solved in ``join``, one group after another, in the stage's ``dtype`` on
     its ``device``."""
 
-    def __init__(self, *, device, dtype=torch.float32):
+    def __init__(self, *, device="cuda", dtype=torch.float32):
         self.device = resolve_device(device)
         self.dtype = dtype
         self._groups: List[RelaxGroupState] = []

@@ -23,8 +23,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from opencalibration_tpu.surface.mesh import TriMesh, build_minimal_mesh
-from opencalibration_tpu.types.graph import MeasurementGraph, NodePose, SurfaceModel
 from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.ops import distort as D
 from opencalibration_tpu_torch.ops.intersection import ray_intersection
@@ -32,7 +30,9 @@ from opencalibration_tpu_torch.ops.quaternion import quat_rotate
 from opencalibration_tpu_torch.relax import blocks as B
 from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
 from opencalibration_tpu_torch.relax.tracks import build_multiray_tracks
+from opencalibration_tpu_torch.surface.mesh import TriMesh, build_minimal_mesh
 from opencalibration_tpu_torch.types.camera import CameraModel, stack_cameras, take_camera
+from opencalibration_tpu_torch.types.graph import MeasurementGraph, NodePose, SurfaceModel
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
 
 DOWN_QUAT = np.array([0.0, 1.0, 0.0, 0.0])  # 180 deg about x: nadir, north-up

@@ -6,7 +6,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
-from opencalibration_tpu.types.graph import MeasurementGraph, NodePose, SurfaceModel
 from opencalibration_tpu_torch.relax.problem_builder import (
     BuiltProblem,
     RelaxOptions,
@@ -14,6 +13,7 @@ from opencalibration_tpu_torch.relax.problem_builder import (
     build_mesh_problem,
 )
 from opencalibration_tpu_torch.types.camera import CameraModel
+from opencalibration_tpu_torch.types.graph import MeasurementGraph, NodePose, SurfaceModel
 
 
 def build_problem(

@@ -19,8 +19,7 @@ import os
 import numpy as np
 import torch
 
-from opencalibration_tpu.geo.geo_coord import GeoCoord
-
+from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
 from opencalibration_tpu_torch.ops import distort as D
 from opencalibration_tpu_torch.ops.features import _bilinear
 from opencalibration_tpu_torch.ops.quaternion import (

@@ -22,12 +22,12 @@ from opencalibration_tpu.relax import problem_builder as JPB
 from opencalibration_tpu.relax import tangent as JT
 from opencalibration_tpu.relax.tracks import build_multiray_tracks as j_tracks
 from opencalibration_tpu.surface.mesh import TriMesh
+from opencalibration_tpu.types import graph as JG
 from opencalibration_tpu.types.graph import (
     CameraRelations,
     FeatureSet,
     ImageNode,
     MeasurementGraph,
-    NodePose,
     SurfaceModel,
 )
 from opencalibration_tpu_torch import interop
@@ -35,6 +35,7 @@ from opencalibration_tpu_torch.relax import blocks as TB
 from opencalibration_tpu_torch.relax import problem_builder as TPB
 from opencalibration_tpu_torch.relax import tangent as TT
 from opencalibration_tpu_torch.relax.tracks import build_multiray_tracks as t_tracks
+from opencalibration_tpu_torch.types import graph as TG
 from tests.test_torch_ground_plane import BROWN, _assert_same_problem, _jcam, _solve
 from tests.test_tracks import make_tracked_graph
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -146,10 +147,9 @@ def test_multiray_tracks_on_the_reference_fixture(edges):
     node_model = {nid: 1 for nid in ids}
     mesh = TriMesh(np.array([[-50.0, -50, 0], [80.0, -50, 0], [10.0, 80, 0]]), np.array([[0, 1, 2]], np.int32))
     quats = np.tile(DOWN, (3, 1))
-    args = (graph, cam_index, node_model)
-    rest = (quats, positions, mesh, edge_ids, 0.15)
-    ref = j_tracks(*args, {1: model}, *rest)
-    got = t_tracks(*args, {1: interop.camera_from(model, "cpu")}, *rest, device="cpu")
+    ref = j_tracks(graph, cam_index, node_model, {1: model}, quats, positions, mesh, edge_ids, 0.15)
+    got = t_tracks(interop.graph_from(graph), cam_index, node_model, {1: interop.camera_from(model, "cpu")}, quats,
+                   positions, interop.mesh_from(mesh), edge_ids, 0.15, device="cpu")
     _assert_same_tracks(got, ref)
     assert bool(got[0]) == (edges == "all")
 
@@ -204,30 +204,31 @@ def _tracked_graph(seed=5):
     return graph, ids, {1: model}
 
 
-def _poses(graph, ids):
-    """The second row as the group, the first as its frozen boundary."""
-    return [NodePose(node_id=i, orientation=np.asarray(graph.get_node(i).payload.orientation).copy(),
-                     position=np.asarray(graph.get_node(i).payload.position).copy()) for i in ids[3:]]
+def _poses(graph, ids, types=JG):
+    """The second row as the group, the first as its frozen boundary, as
+    ``types.NodePose``s."""
+    return [types.NodePose(node_id=i, orientation=np.asarray(graph.get_node(i).payload.orientation).copy(),
+                           position=np.asarray(graph.get_node(i).payload.position).copy()) for i in ids[3:]]
 
 
 @pytest.fixture(scope="module")
 def tracked():
     graph, ids, j_models = _tracked_graph()
     t_models = {mid: interop.camera_from(m, "cpu") for mid, m in j_models.items()}
-    return graph, ids, j_models, t_models
+    return graph, interop.graph_from(graph), ids, j_models, t_models
 
 
 def test_multiray_tracks_on_a_survey(tracked):
-    graph, ids, j_models, t_models = tracked
+    graph, t_graph, ids, j_models, t_models = tracked
     cam_index = {nid: i for i, nid in enumerate(ids)}
     node_model = {nid: 1 for nid in ids}
     quats = np.stack([graph.get_node(i).payload.orientation for i in ids])
     positions = np.stack([graph.get_node(i).payload.position for i in ids])
     mesh = _grid_mesh(np.random.default_rng(6), z_scale=0.5)
     edge_ids = sorted(graph.edge_ids())
-    rest = (quats, positions, mesh, edge_ids, 0.1)
-    ref = j_tracks(graph, cam_index, node_model, j_models, *rest)
-    got = t_tracks(graph, cam_index, node_model, t_models, *rest, device="cpu")
+    ref = j_tracks(graph, cam_index, node_model, j_models, quats, positions, mesh, edge_ids, 0.1)
+    got = t_tracks(t_graph, cam_index, node_model, t_models, quats, positions, interop.mesh_from(mesh), edge_ids, 0.1,
+                   device="cpu")
     _assert_same_tracks(got, ref)
     rows = ref[0]
     # tracks of 3 to 5 rays, some of them longer than 3
@@ -258,14 +259,14 @@ def _same_built(got, ref):
 
 @pytest.mark.parametrize("case", ["refined_mesh", "minimal_mesh"])
 def test_ground_mesh_problem_refresh_and_solve(tracked, case):
-    graph, ids, j_models, t_models = tracked
+    graph, t_graph, ids, j_models, t_models = tracked
     edge_ids = sorted(graph.edge_ids())
     opts_j = JPB.RelaxOptions(orientation=True, ground_mesh=True, grid_fraction=0.1)
     opts_t = TPB.RelaxOptions(orientation=True, ground_mesh=True, grid_fraction=0.1)
     prev = _previous(case)
     ref = JPB.build_mesh_problem(graph, _poses(graph, ids), j_models, edge_ids, opts_j, prev, 0.1)
-    got = TPB.build_mesh_problem(graph, _poses(graph, ids), t_models, edge_ids, opts_t, prev, 0.1,
-                                 dtype=F64, device="cpu")
+    got = TPB.build_mesh_problem(t_graph, _poses(t_graph, ids, TG), t_models, edge_ids, opts_t,
+                                 [interop.surface_from(sm) for sm in prev], 0.1, dtype=F64, device="cpu")
     _same_built(got, ref)
     names = [b.name for b in ref.blocks]
     assert names[:2] == ["plane_ray", "downwards_prior"] and "mesh_anchor" in names
@@ -279,20 +280,21 @@ def test_ground_mesh_problem_refresh_and_solve(tracked, case):
     moved = ref.mesh.copy()
     moved.vertices[:, 2] += rng.normal(scale=0.3, size=moved.num_vertices)
     surfaces = [SurfaceModel(cloud=[], mesh=moved)]
+    t_poses = [TG.NodePose(p.node_id, p.orientation.copy(), p.position.copy()) for p in poses]
     assert JPB.refresh_problem(ref, graph, poses, j_models, surfaces, opts_j)
-    assert TPB.refresh_problem(got, graph, poses, t_models, surfaces, opts_t)
+    assert TPB.refresh_problem(got, t_graph, t_poses, t_models, [interop.surface_from(sm) for sm in surfaces], opts_t)
     _same_built(got, ref)
     anchor = next(b for b in got.blocks if b.name == "mesh_anchor")
     np.testing.assert_allclose(anchor.data["target"].numpy(), moved.vertices[:, 2], rtol=0, atol=1e-12)
 
     # a refined mesh no longer fits the cached structure
     other = _grid_mesh(rng, n=5)
-    for refresh, b, models, opts in ((JPB.refresh_problem, ref, j_models, opts_j),
-                                     (TPB.refresh_problem, got, t_models, opts_t)):
-        assert not refresh(b, graph, poses, models, [SurfaceModel(cloud=[], mesh=other)], opts)
+    other = SurfaceModel(cloud=[], mesh=other)
+    assert not JPB.refresh_problem(ref, graph, poses, j_models, [other], opts_j)
+    assert not TPB.refresh_problem(got, t_graph, t_poses, t_models, [interop.surface_from(other)], opts_t)
 
     # and the refreshed problem solves alike
-    ref_poses, got_poses = _poses(graph, ids), _poses(graph, ids)
+    ref_poses, got_poses = _poses(graph, ids), _poses(t_graph, ids, TG)
     ref_surf = JPB.solve_problem(ref, ref_poses, dict(j_models), pre_solve_surface=True)
     got_surf = _solve(got, got_poses, pre_solve=True)
     for r, g in zip(ref_poses, got_poses):

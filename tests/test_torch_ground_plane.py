@@ -22,7 +22,8 @@ from opencalibration_tpu.relax import lm as JLM
 from opencalibration_tpu.relax import problem_builder as JPB
 from opencalibration_tpu.relax import tangent as JT
 from opencalibration_tpu.types.camera import CameraModel as JCamera
-from opencalibration_tpu.types.graph import CameraRelations, ImageNode, MeasurementGraph, NodePose
+from opencalibration_tpu.types import graph as JG
+from opencalibration_tpu.types.graph import CameraRelations, ImageNode, MeasurementGraph
 from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.ops import distort as TD
 from opencalibration_tpu_torch.ops import intersection as TI
@@ -32,6 +33,7 @@ from opencalibration_tpu_torch.relax import lm as TLM
 from opencalibration_tpu_torch.relax import problem_builder as TPB
 from opencalibration_tpu_torch.relax import relax as TR
 from opencalibration_tpu_torch.relax import tangent as TT
+from opencalibration_tpu_torch.types import graph as TG
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DOWN = np.asarray([0.0, 1.0, 0.0, 0.0])
@@ -227,10 +229,11 @@ def _graph(distortion):
     return graph, ids, {1: model}, quats
 
 
-def _poses(graph, ids):
-    """The second row as the group, the first as its frozen boundary."""
-    return [NodePose(node_id=i, orientation=np.asarray(graph.get_node(i).payload.orientation).copy(),
-                     position=np.asarray(graph.get_node(i).payload.position).copy()) for i in ids[3:]]
+def _poses(graph, ids, types=JG):
+    """The second row as the group, the first as its frozen boundary, as
+    ``types.NodePose``s."""
+    return [types.NodePose(node_id=i, orientation=np.asarray(graph.get_node(i).payload.orientation).copy(),
+                           position=np.asarray(graph.get_node(i).payload.position).copy()) for i in ids[3:]]
 
 
 def _assert_same_problem(got, ref):
@@ -268,12 +271,13 @@ def test_ground_plane_problem_and_solve(distortion):
     opts_j = JPB.RelaxOptions(orientation=True, ground_plane=True)
     opts_t = TPB.RelaxOptions(orientation=True, ground_plane=True)
     ref = JPB.build_mesh_problem(graph, _poses(graph, ids), j_models, edge_ids, opts_j)
-    got = TPB.build_mesh_problem(graph, _poses(graph, ids), t_models, edge_ids, opts_t, dtype=F64, device="cpu")
+    t_graph = interop.graph_from(graph)
+    got = TPB.build_mesh_problem(t_graph, _poses(t_graph, ids, TG), t_models, edge_ids, opts_t, dtype=F64, device="cpu")
     _assert_same_problem(got, ref)
     assert ref.blocks[0].name == "plane_ray" and ref.blocks[0].data["ray_valid"].sum() > 200
     np.testing.assert_array_equal(got.mesh.vertices, ref.mesh.vertices)
 
-    ref_poses, got_poses = _poses(graph, ids), _poses(graph, ids)
+    ref_poses, got_poses = _poses(graph, ids), _poses(t_graph, ids, TG)
     ref_surf = JPB.solve_problem(ref, ref_poses, dict(j_models), pre_solve_surface=True)
     got_surf = _solve(got, got_poses, pre_solve=True)
     for r, g in zip(ref_poses, got_poses):
@@ -291,9 +295,10 @@ def test_decomposition_problem_and_solve():
     graph, ids, _, _ = _graph({})
     edge_ids = sorted(graph.edge_ids())
     ref = JPB.build_decomposition_problem(graph, _poses(graph, ids), edge_ids)
-    got = TPB.build_decomposition_problem(graph, _poses(graph, ids), edge_ids, dtype=F64, device="cpu")
+    t_graph = interop.graph_from(graph)
+    got = TPB.build_decomposition_problem(t_graph, _poses(t_graph, ids, TG), edge_ids, dtype=F64, device="cpu")
     _assert_same_problem(got, ref)
-    ref_poses, got_poses = _poses(graph, ids), _poses(graph, ids)
+    ref_poses, got_poses = _poses(graph, ids), _poses(t_graph, ids, TG)
     JPB.solve_problem(ref, ref_poses)
     _solve(got, got_poses, pre_solve=False)
     for r, g in zip(ref_poses, got_poses):
@@ -302,9 +307,10 @@ def test_decomposition_problem_and_solve():
 
 def test_branches_not_ported_raise():
     graph, ids, j_models, _ = _graph({})
+    graph = interop.graph_from(graph)
     t_models = {mid: interop.camera_from(m, "cpu") for mid, m in j_models.items()}
     edge_ids = sorted(graph.edge_ids())
     for opts in (TPB.RelaxOptions(points_3d=True), TPB.RelaxOptions(ground_plane=True, focal=True),
                  TPB.RelaxOptions(ground_mesh=True, focal=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.build_problem(graph, _poses(graph, ids), t_models, edge_ids, opts, dtype=F64, device="cpu")
+            TR.build_problem(graph, _poses(graph, ids, TG), t_models, edge_ids, opts, dtype=F64, device="cpu")

@@ -16,6 +16,7 @@ import torch
 
 from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import hamming_cuda
+from opencalibration_tpu_torch.testing import hamming_cases as HC
 
 
 @pytest.fixture
@@ -52,6 +53,25 @@ def _inputs(seed, pairs, n1, n2, valid_rate):
     return p1, p2, v1, v2
 
 
+def _assert_bit_exact(cuda, p1, p2, v1, v2):
+    """The kernel, alone and inside match_descriptors, against the plain
+    version: all outputs equal; two launches give the same bits."""
+    p1, p2, v1, v2 = (t.to(cuda).contiguous() for t in (p1, p2, v1, v2))
+    before = hamming_cuda.hamming_top2.launches
+    top2 = hamming_cuda.hamming_top2(p1, p2, v2)
+    again = hamming_cuda.hamming_top2(p1, p2, v2)
+    got = top2 + H.match_descriptors(p1, p2, v1, v2)
+    want = H.hamming_top2_reference(p1, p2, v2) + H.match_descriptors_reference(p1, p2, v1, v2)
+    torch.cuda.synchronize()
+    assert hamming_cuda.hamming_top2.launches == before + 3
+    for name, g, w in zip(("best", "second", "idx", "idx2", "distance", "matched"), got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name}: {int((g != w).sum())} entries differ"
+    for g, r in zip(top2, again):
+        assert torch.equal(g, r)
+    return want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "pairs,n1,n2,valid_rate",
@@ -65,15 +85,31 @@ def _inputs(seed, pairs, n1, n2, valid_rate):
     ],
 )
 def test_kernel_bit_exact_with_plain_version(cuda, pairs, n1, n2, valid_rate):
-    p1, p2, v1, v2 = (t.to(cuda) for t in _inputs(n1 + n2, pairs, n1, n2, valid_rate))
-    before = hamming_cuda.hamming_top2.launches
-    got = hamming_cuda.hamming_top2(p1, p2, v2) + H.match_descriptors(p1, p2, v1, v2)
-    want = H.hamming_top2_reference(p1, p2, v2) + H.match_descriptors_reference(p1, p2, v1, v2)
-    torch.cuda.synchronize()
-    assert hamming_cuda.hamming_top2.launches == before + 2
-    for g, w in zip(got, want):
-        assert g.device.type == "cuda" and g.dtype == w.dtype
-        assert torch.equal(g, w)
+    _assert_bit_exact(cuda, *_inputs(n1 + n2, pairs, n1, n2, valid_rate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [name for name, *_ in HC.kernel_cases(np.random.default_rng(0))])
+def test_kernel_contract_cases(cuda, case):
+    """The contract's edge cases: ties, 0 and 1 valid columns, garbage
+    padding bits, a shape that is no multiple of any tile."""
+    cases = {name: tensors for name, *tensors in HC.kernel_cases(np.random.default_rng(0))}
+    _assert_bit_exact(cuda, *cases[case])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairs,n", [(42, 2048), (16, 1024)], ids=["calibration_step", "link_chunk"])
+def test_kernel_main_path_shapes(cuda, pairs, n):
+    _assert_bit_exact(cuda, *HC.main_path_case(np.random.default_rng(pairs), pairs, n))
+
+
+@pytest.mark.gpu
+def test_kernel_split_set_two_with_ties_across_splits(cuda):
+    """One 128-row block, so set 2 is split over several blocks of a cluster
+    (1000 columns: 8 tiles, one per split); each row's exact copies lie in
+    two splits."""
+    best, second, _ = _assert_bit_exact(cuda, *HC.split_ties_case(np.random.default_rng(11)))[:3]
+    assert int((best == second).sum()) > 50 and int((best == 0).sum()) > 50
 
 
 @pytest.mark.gpu
@@ -116,10 +152,10 @@ def _mesh_relax_problem(device, seed=0, dtype=torch.float32):
     """A small ground-mesh relax on ``device``: 4 cameras over a refined
     3 x 3 vertex mesh, plane-ray rows of 2 to 5 rays and the three mesh
     priors. Returns (params, blocks, layout, free mask)."""
-    from opencalibration_tpu.surface.mesh import TriMesh
     from opencalibration_tpu_torch.relax import blocks as B
     from opencalibration_tpu_torch.relax import problem_builder as PB
     from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+    from opencalibration_tpu_torch.surface.mesh import TriMesh
 
     rng = np.random.default_rng(seed)
     xs, ys = np.meshgrid([0.0, 30.0, 60.0], [0.0, 30.0, 60.0])

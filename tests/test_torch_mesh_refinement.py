@@ -73,8 +73,9 @@ def runs(tmp_path_factory):
         JF.set_blur_precision(prior)
 
     port = Pipeline(batch_size=3, device="cpu", dtype=torch.float64)
-    for attr in ("graph", "surfaces", "gps_positions"):
-        setattr(port, attr, copy.deepcopy(getattr(ref, attr)))
+    port.graph = interop.graph_from(ref.graph)
+    port.surfaces = [interop.surface_from(s) for s in ref.surfaces]
+    port.gps_positions = copy.deepcopy(ref.gps_positions)
     port.model_store = {mid: interop.camera_from(m, "cpu") for mid, m in ref.model_store.items()}
     port.reset_state(PipelineState.MESH_REFINEMENT)
 

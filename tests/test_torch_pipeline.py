@@ -23,6 +23,7 @@ import torch
 from opencalibration_tpu.ops import features as JF
 from opencalibration_tpu.ops import quaternion as JQ
 from opencalibration_tpu.pipeline.pipeline import Pipeline as JPipeline
+from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.testing import survey as TS
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -163,13 +164,25 @@ def test_later_states_raise_and_device_is_required():
             Pipeline(device="cuda")
 
 
+def test_default_device_is_the_card(monkeypatch):
+    """``Pipeline()`` and its stages name no device and get the card: without
+    one they raise rather than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (Pipeline, ST.LoadStage, ST.LinkStage, ST.RelaxStage):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert Pipeline(device="cpu").device == torch.device("cpu")
+
+
 def test_initial_processing_without_jax(tmp_path):
-    """In a process where ``import jax`` fails, the port runs a 2 x 2 survey
-    from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX (camera parameters
-    skipped) and no jax module is loaded."""
+    """In a process where ``import jax`` and ``import opencalibration_tpu``
+    (the JAX package) fail, the port runs a 2 x 2 survey from
+    INITIAL_PROCESSING through FINAL_GLOBAL_RELAX (camera parameters skipped)
+    and no module of either is loaded."""
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None  # any import of jax raises
+        sys.modules["opencalibration_tpu"] = None  # and of the JAX package (not the port's prefix)
         from opencalibration_tpu_torch.testing import survey
         from opencalibration_tpu_torch.pipeline.pipeline import Pipeline
         paths, _, _ = survey.write_survey({str(tmp_path)!r}, 2, 2, device="cpu")
@@ -180,12 +193,13 @@ def test_initial_processing_without_jax(tmp_path):
         while p.get_state() != "GENERATE_THUMBNAIL":
             states.append(p.get_state())
             p.iterate_once()
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu") and sys.modules[m])
+        assert any(m.startswith("opencalibration_tpu_torch.") for m in sys.modules)
         print(p.get_state(), p.graph.size_nodes(), p.graph.size_edges(), len(p.surfaces),
               ",".join(sorted(set(states))), loaded)
     """)
     env = dict(os.environ)
-    env.pop("OC_TPU_COMPILE_CACHE", None)  # the port sets it itself
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in this process (tests/torch_threads.py)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,

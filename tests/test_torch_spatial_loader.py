@@ -128,7 +128,7 @@ def test_load_and_decode_matches_reference(tmp_path):
         assert got.scale == ref.scale
         j_sidecar(ref.node)
         t_sidecar(got.node)
-        assert got.node.metadata == ref.node.metadata
+        assert got.node.metadata == interop.image_node_from(ref.node).metadata
         assert got.node.metadata.has_gps() and got.node.metadata.focal_length_px == TSv.FOCAL
 
 
@@ -164,5 +164,5 @@ def test_sparse_masks_and_feature_sets_match_reference():
     for i, scale in enumerate((1.0, 0.5)):
         ref = JL.features_from_device(ref_np, i, scale, sizes[i], 200, sparse_mask=ref_masks[i])
         got = TL.features_from_device(got_np, i, scale, sizes[i], 200, sparse_mask=got_masks[i])
-        assert got == ref and got.descriptors.dtype == np.uint32
+        assert got == interop.feature_set_from(ref) and got.descriptors.dtype == np.uint32
 
