@@ -32,8 +32,9 @@ Phases, each printing its lines:
    stage counters, nodes / edges / groups, LM iterations, peak memory, kernel
    launches, the kernel against its plain version on one link chunk, and the
    orientation error against the scene's ground truth;
-8. the same 24-image survey rendered over terrain with 8 m of sinusoidal
-   relief (70 m wavelength), driven from INITIAL_PROCESSING through
+8. a 12-image survey (3 x 4, same image size) rendered over terrain with
+   8 m of sinusoidal relief (70 m wavelength), driven from
+   INITIAL_PROCESSING through
    MESH_REFINEMENT, INITIAL_GLOBAL_RELAX (skipped by default),
    CAMERA_PARAMETER_RELAX (skipped) and FINAL_GLOBAL_RELAX to
    GENERATE_THUMBNAIL: seconds per ``iterate_once`` and per state, mesh
@@ -44,13 +45,33 @@ Phases, each printing its lines:
    relief) and at the end (bounded), and the final mesh's height error
    against the relief; then the last full problem solved with the dense and
    the matrix-free linear solvers on the card (their difference and time per
-   LM iteration), and the matrix-free solve run twice, bit for bit.
+   LM iteration), and the matrix-free solve run twice, bit for bit;
+9. the whole calibration at full size: the 24-image survey over the same
+   relief, its geotags' focal length 5 % above the true 2000 px, from
+   ``add(paths)`` with the pipeline's defaults through INITIAL_PROCESSING,
+   MESH_REFINEMENT, CAMERA_PARAMETER_RELAX with the intrinsics free, the
+   edge refit and FINAL_GLOBAL_RELAX to GENERATE_THUMBNAIL: seconds, passes,
+   LM iterations, problem builds and refreshes per state; per pass of
+   CAMERA_PARAMETER_RELAX the option tier, the camera model, and the model
+   inversion, model conversion and refit scopes; the focal error against
+   the truth (bounded at 3 %, and below the tag's 5 %), orientations and
+   mesh heights (bounded as in phase 8), a finite homography on every edge
+   that kept inliers, one build and five refreshes in the state, one refit;
+   then ``save_checkpoint``, ``load_checkpoint`` into a fresh pipeline, and
+   the two compared;
+10. the shared-intrinsics joint solver on the card against the CPU: a 3 x 3
+   relief survey at 320 x 240 is run on the card to the entry of
+   CAMERA_PARAMETER_RELAX, split into intrinsics groups of 3, and the
+   stacked batch solved by ``solve_group_batch_shared`` in float32 on both
+   devices: every group's copy of the shared tail equal bit for bit on
+   each device, focal and orientations of the two devices within the
+   stated bounds, iterations printed.
 
-The ``kernels`` line gives each kernel's launches on the main path, phase 8
-(INITIAL_PROCESSING through FINAL_GLOBAL_RELAX), and on the paths of
-phases 7 and 5, each taken with the counter set to 0 just before the path
-and read just after it, and phase 3's times and bounds (``*_link`` at the
-link's shape). Run from the repository root with
+The ``kernels`` line gives each kernel's launches on the main path, phase 9
+(INITIAL_PROCESSING through FINAL_GLOBAL_RELAX with the camera parameters),
+and on the paths of phases 8, 7 and 5, each taken with the counter set to 0
+just before the path and read just after it, and phase 3's times and bounds
+(``*_link`` at the link's shape). Run from the repository root with
 ``python3 chip_smoke.py``. Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
 exits with 1 before doing anything. The last line of standard output is
@@ -59,6 +80,7 @@ exits with 1 before doing anything. The last line of standard output is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -81,6 +103,7 @@ from opencalibration_tpu_torch.pipeline import calibration as C
 from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.relax import lm as LM
+from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
 from opencalibration_tpu_torch.testing import hamming_cases as HC
 from opencalibration_tpu_torch.testing import survey as S
 from opencalibration_tpu_torch.utils import performance
@@ -91,6 +114,8 @@ SMALL = dict(rows=2, cols=3, width=320, height=240, focal=400.0, texture=512,
 # focal and texture scaled x5 together keep the footprint and overlap
 FULL = dict(rows=4, cols=6, width=1600, height=1200, focal=2000.0, texture=2560,
             max_features=2048)
+# phase 8's smaller survey: the same images, half as many
+MESH = dict(FULL, rows=3, cols=4)
 SPACING = 12.0
 NUM_HYPOTHESES = 2048
 MAX_ITERATIONS = 50
@@ -107,6 +132,15 @@ HEIGHT_MEDIAN_M, HEIGHT_MAX_M = 1.0, 4.0
 # the matrix-free step against the dense one on the last full problem: the CG
 # step is inexact (rtol 1e-2), so the two solves take different paths
 CG_VS_CHOLESKY_DEG, CG_VS_CHOLESKY_M = 0.05, 0.1
+# camera-parameter relax: the geotags' focal against the true one, and the
+# bound on the recovered focal (the JAX package's tests/test_intrinsics_e2e.py)
+FOCAL_TAG_FACTOR, FOCAL_REL_BOUND = 1.05, 0.03
+# a checkpoint stores mesh vertices with 10 significant digits and cloud
+# points with 6 decimals; the graph and the camera models come back exactly
+CHECKPOINT_VERTEX_REL, CHECKPOINT_CLOUD_M = 1e-9, 6e-7
+# the shared solver in float32, CUDA against CPU, on the 3 x 3 survey
+SHARED_GROUP_SIZE, SHARED_MAX_ITERATIONS = 3, 50
+SHARED_FOCAL_REL, SHARED_DEG = 5e-3, 0.1
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
 # NVIDIA's published H100 SXM peaks (dense, at 700 W): int8 tensor cores and
@@ -452,19 +486,21 @@ def phase_pipeline_cuda_vs_cpu():
     return launches
 
 
-def phase_pipeline_full_size(directory, relief_m, label):
-    """INITIAL_PROCESSING at full size over terrain with ``relief_m`` of
-    relief. Returns the pipeline, the survey's paths, positions and
-    orientations, and the state's kernel launches."""
-    cfg = FULL
+def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=None):
+    """INITIAL_PROCESSING at full image size (``cfg``, default FULL) over
+    terrain with ``relief_m`` of relief, the geotags carrying
+    ``focal_px_tag`` (default: the true focal). Returns the pipeline, the
+    survey's paths, positions and orientations, and the state's kernel
+    launches."""
+    cfg = cfg or FULL
     t0 = time.perf_counter()
     paths, positions, quats_gt = S.write_survey(
         directory, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
-        focal=cfg["focal"], texture=cfg["texture"], relief_amplitude=relief_m,
+        focal=cfg["focal"], focal_px_tag=focal_px_tag, texture=cfg["texture"], relief_amplitude=relief_m,
         relief_wavelength=RELIEF_WAVELENGTH_M, device="cuda",
     )
     print(f"[{label}] wrote {len(paths)} PGM images at {cfg['width']}x{cfg['height']} "
-          f"(relief {relief_m} m) in {time.perf_counter() - t0:.2f} s")
+          f"(relief {relief_m} m, focal tag {focal_px_tag or cfg['focal']}) in {time.perf_counter() - t0:.2f} s")
     p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
     groups = []
     solve_groups = ST.solve_groups
@@ -576,7 +612,7 @@ def phase_mesh_refinement(directory):
     """The relief survey from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX;
     returns the kernel launches of the whole run (the link check between the
     two parts launches the kernel too and is not counted)."""
-    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip")
+    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip", cfg=MESH)
     _orientation_error(p, paths, quats_gt, "mesh-ip", bounded=False)
     p.skip_camera_param_relax = True
     performance.reset_performance_counters()
@@ -664,6 +700,258 @@ def phase_mesh_refinement(directory):
     return launches
 
 
+class _BuildRecorder:
+    """Counts the relax stage's problem builds and refreshes (one call per
+    group and pass) while the pipeline runs."""
+
+    def __init__(self):
+        self.builds = self.refreshes = 0
+        self._orig = (ST.build_problem, ST.refresh_problem)
+
+    def __enter__(self):
+        build, refresh = self._orig
+
+        def counting_build(*args, **kw):
+            self.builds += 1
+            return build(*args, **kw)
+
+        def counting_refresh(*args, **kw):
+            self.refreshes += 1
+            return refresh(*args, **kw)
+
+        ST.build_problem, ST.refresh_problem = counting_build, counting_refresh
+        return self
+
+    def __exit__(self, *exc):
+        ST.build_problem, ST.refresh_problem = self._orig
+
+
+CPR_SCOPES = ("relax solve", "relax build problems", "relax refresh problems", "build: model inversion",
+              "refresh: model inversion", "writeback: model conversion", "refit all edges")
+
+
+def _model_line(model):
+    return (f"focal {float(model.focal_length_pixels):.4f}, principal {np.round(model.principal_point.numpy(), 4).tolist()}, "
+            f"radial {[float(f'{v:.4g}') for v in model.radial_distortion.numpy()]}")
+
+
+def _assert_same_after_checkpoint(p, q):
+    """The loaded pipeline ``q`` against the saved one ``p``: state, graph
+    (poses, features, edges), camera models and GPS index exactly; the
+    surface within the checkpoint's text formats."""
+    if (q.get_state(), q.state_run_count()) != (p.get_state(), p.state_run_count()):
+        raise AssertionError(f"checkpoint state {q.get_state()} != {p.get_state()}")
+    if q.graph != p.graph:
+        raise AssertionError("the loaded graph differs from the saved one")
+    if sorted(q.model_store) != sorted(p.model_store):
+        raise AssertionError("the loaded camera models differ from the saved ones")
+    for mid, m in p.model_store.items():
+        for leaf in ("focal_length_pixels", "principal_point", "radial_distortion", "tangential_distortion",
+                     "pixels_cols", "pixels_rows"):
+            if not torch.equal(getattr(q.model_store[mid], leaf), getattr(m, leaf)) or q.model_store[mid].tag != m.tag:
+                raise AssertionError(f"camera model {mid} {leaf} differs after the checkpoint")
+    if sorted(q.gps_positions) != sorted(p.gps_positions) or q.geocoord.origin != p.geocoord.origin:
+        raise AssertionError("GPS index or origin differs after the checkpoint")
+    if len(q.surfaces) != len(p.surfaces):
+        raise AssertionError("surface count differs after the checkpoint")
+    worst_v = worst_c = 0.0
+    for a, b in zip(q.surfaces, p.surfaces):
+        if not np.array_equal(a.mesh.triangles, b.mesh.triangles) or len(a.cloud) != len(b.cloud):
+            raise AssertionError("surface topology differs after the checkpoint")
+        worst_v = max(worst_v, float(np.max(np.abs(a.mesh.vertices - b.mesh.vertices)
+                                            / np.maximum(np.abs(b.mesh.vertices), 1.0))))
+        for ca, cb in zip(a.cloud, b.cloud):
+            if ca.shape != cb.shape:
+                raise AssertionError("cloud size differs after the checkpoint")
+            worst_c = max(worst_c, float(np.abs(ca - cb).max()))
+    if worst_v > CHECKPOINT_VERTEX_REL or worst_c > CHECKPOINT_CLOUD_M:
+        raise AssertionError(f"surface differs after the checkpoint: vertices {worst_v}, clouds {worst_c}")
+    return worst_v, worst_c
+
+
+def phase_camera_relax(directory):
+    """The whole calibration at full size, from images with a 5 % wrong focal
+    tag to a saved and loaded checkpoint; returns the kernel launches from
+    INITIAL_PROCESSING through FINAL_GLOBAL_RELAX."""
+    true_focal = FULL["focal"]
+    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(
+        directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal)
+    tag = float(p.model_store[1].focal_length_pixels)
+    if len(p.model_store) != 1 or abs(tag / true_focal - FOCAL_TAG_FACTOR) > 1e-6 or p.skip_camera_param_relax:
+        raise AssertionError(f"the survey's camera model is not the one wrong tag: {p.model_store}")
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
+    torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.hamming_top2.launches = 0
+    steps = []
+    try:
+        with _SolveRecorder() as rec, _BuildRecorder() as builds:
+            while p.get_state() != PipelineState.GENERATE_THUMBNAIL:
+                state, rc = p.get_state(), p.state_run_count()
+                n_solves, n_b, n_r = len(rec.solves), builds.builds, builds.refreshes
+                scopes0 = {k: performance.get_timer_total(k) for k in CPR_SCOPES}
+                t0 = time.perf_counter()
+                p.iterate_once()
+                _sync()
+                steps.append(dict(
+                    state=state, rc=rc, seconds=time.perf_counter() - t0,
+                    lm=sum(sum(s["lm"]) for s in rec.solves[n_solves:]),
+                    dims=[s["dims"] for s in rec.solves[n_solves:]],
+                    builds=builds.builds - n_b, refreshes=builds.refreshes - n_r,
+                    scopes={k: performance.get_timer_total(k) - scopes0[k] for k in CPR_SCOPES},
+                    model=_model_line(p.model_store[1]), focal=float(p.model_store[1].focal_length_pixels),
+                ))
+                if len(steps) > 80:
+                    raise AssertionError("the pipeline did not reach GENERATE_THUMBNAIL in 80 passes")
+    finally:
+        performance.enable_performance_counters(False)
+    launches = ip_launches + hamming_cuda.hamming_top2.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    print(f"[calib] after INITIAL_PROCESSING: {len(steps)} iterate_once calls, {sum(st['seconds'] for st in steps):.4f} s")
+    for state in PipelineState.ORDER:
+        of = [st for st in steps if st["state"] == state]
+        if of:
+            print(f"[calib] {state}: {len(of)} passes, {sum(st['seconds'] for st in of):.4f} s, "
+                  f"{sum(st['lm'] for st in of)} LM iterations (full solves), {sum(st['builds'] for st in of)} builds, "
+                  f"{sum(st['refreshes'] for st in of)} refreshes")
+    cpr = [st for st in steps if st["state"] == PipelineState.CAMERA_PARAMETER_RELAX]
+    for st in cpr:
+        rc = st["rc"]
+        tier = f"focal, radial tier {min(max(rc - 1, 0), 3)}" + (", principal" if rc >= 4 else "")
+        print(f"[calib] CAMERA_PARAMETER_RELAX pass {rc} ({tier}): {st['seconds']:.4f} s, LM {st['lm']}, "
+              f"dims {st['dims']}, builds {st['builds']}, refreshes {st['refreshes']}; {st['model']}; "
+              f"focal error {100 * abs(st['focal'] / true_focal - 1):.4f} %; scopes "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st["scopes"].items()))
+    total = {k: sum(st["scopes"][k] for st in cpr) for k in CPR_SCOPES}
+    cpr_s = sum(st["seconds"] for st in cpr)
+    print(f"[calib] CAMERA_PARAMETER_RELAX shares of {cpr_s:.4f} s: "
+          + ", ".join(f"{k} {v:.3f} s ({100 * v / cpr_s:.1f} %)" for k, v in total.items())
+          + " (the model inversions are part of build and refresh)")
+    print("[calib] stage counters (host clock; seconds):")
+    for line in performance.total_performance_summary().splitlines():
+        print(f"[calib]   {line}")
+    print(f"[calib] peak memory allocated {peak / 2**30:.3f} GiB; Hamming kernel launches {launches} from "
+          f"INITIAL_PROCESSING on; {int(performance.get_event_count('relax plan reuses'))} plan reuses")
+
+    # one structure for the whole state, refreshed on every later pass; one refit, after the last pass
+    if [st["builds"] for st in cpr] != [1, 0, 0, 0, 0, 0] or [st["refreshes"] for st in cpr] != [0, 1, 1, 1, 1, 1]:
+        raise AssertionError(f"CAMERA_PARAMETER_RELAX did not build once and refresh five times: "
+                             f"{[(st['builds'], st['refreshes']) for st in cpr]}")
+    if [st["scopes"]["refit all edges"] > 0 for st in cpr] != [False] * 5 + [True]:
+        raise AssertionError("the edges were not refitted exactly once, after the last pass")
+    focal = float(p.model_store[1].focal_length_pixels)
+    rel = abs(focal / true_focal - 1.0)
+    print(f"[calib] focal {focal:.4f} px against the true {true_focal} (tag {tag:.1f}): error {100 * rel:.4f} % "
+          f"(bound {100 * FOCAL_REL_BOUND} %, tag {100 * (FOCAL_TAG_FACTOR - 1):.1f} %)")
+    if not (rel < FOCAL_REL_BOUND and rel < FOCAL_TAG_FACTOR - 1.0):
+        raise AssertionError(f"the focal length was not recovered: {focal} against {true_focal}")
+    _orientation_error(p, paths, quats_gt, "calib")
+    herr, n_inside = _height_error(p, positions)
+    print(f"[calib] mesh height error vs the relief at {n_inside} vertices inside the camera footprint: "
+          f"median {np.median(herr):.4f} m, max {herr.max():.4f} m (bounds {HEIGHT_MEDIAN_M}, {HEIGHT_MAX_M})")
+    if not n_inside or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
+        raise AssertionError(f"mesh does not follow the relief: {np.round(herr, 3).tolist()}")
+    kept = emptied = 0
+    for _, e in p.graph.edges():
+        if len(e.payload.inlier_idx1):
+            kept += 1
+            if not np.isfinite(np.asarray(e.payload.ransac_relation)).all():
+                raise AssertionError("an edge with inliers has a non-finite homography after the refit")
+        else:
+            emptied += 1
+    print(f"[calib] after the refit: {kept} edges keep inliers (finite homographies), {emptied} emptied")
+    if kept < len(paths):
+        raise AssertionError(f"the refit left only {kept} edges with inliers")
+
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        if not p.save_checkpoint(ck):
+            raise AssertionError("save_checkpoint failed")
+        saved_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        q = Pipeline(device="cuda")
+        t0 = time.perf_counter()
+        if not q.load_checkpoint(ck):
+            raise AssertionError("load_checkpoint failed")
+        loaded_s = time.perf_counter() - t0
+        files = sorted(os.listdir(ck))
+    worst_v, worst_c = _assert_same_after_checkpoint(p, q)
+    print(f"[calib] checkpoint {files} ({size / 2**20:.2f} MiB): saved in {saved_s:.3f} s, loaded in {loaded_s:.3f} s; "
+          f"state {q.get_state()}, graph, camera models and GPS index equal; mesh vertices within {worst_v:.2e} "
+          f"(relative, bound {CHECKPOINT_VERTEX_REL}), clouds within {worst_c:.2e} m (bound {CHECKPOINT_CLOUD_M})")
+    return launches
+
+
+def _shared_solve(graph, gps_positions, model_store, surfaces, device):
+    """Groups of SHARED_GROUP_SIZE over ``graph`` with the focal free,
+    stacked by the stage into one shared-intrinsics batch and solved jointly
+    in float32 on ``device``. Returns (batch, solved params on the host,
+    info, seconds)."""
+    stage = ST.RelaxStage(device=device, dtype=torch.float32)
+    stage.init(graph, [], gps_positions, model_store, relax_all=True, disable_parallelism=False,
+               options=RelaxOptions(orientation=True, ground_mesh=True, focal=True))
+    stage.dispatch(graph, surfaces)
+    batch = stage.last_plan.batch
+    if batch is None or not batch.shared_intrinsics or batch.num_groups < 2:
+        raise AssertionError("the survey did not split into several intrinsics groups")
+    t0 = time.perf_counter()
+    solved, info = GS.solve_group_batch_shared(batch, stage.last_plan.pre_solve, max_iterations=SHARED_MAX_ITERATIONS)
+    if batch.free.is_cuda:
+        _sync()
+    return batch, GS.fetch_solved(solved), info, time.perf_counter() - t0
+
+
+def phase_shared_solver():
+    """The joint solver of several intrinsics groups, CUDA against CPU."""
+    with tempfile.TemporaryDirectory() as d:
+        paths, _, _ = S.write_survey(d, 3, 3, focal_px_tag=FOCAL_TAG_FACTOR * SMALL["focal"],
+                                     relief_amplitude=RELIEF_M, relief_wavelength=RELIEF_WAVELENGTH_M, device="cuda")
+        p = Pipeline(batch_size=9, device="cuda")
+        p.add(paths)
+        t0 = time.perf_counter()
+        while p.get_state() != PipelineState.CAMERA_PARAMETER_RELAX:
+            p.iterate_once()
+        _sync()
+    mesh = p.surfaces[0].mesh
+    print(f"[shared] 3x3 survey at 320x240 run to CAMERA_PARAMETER_RELAX in {time.perf_counter() - t0:.2f} s: "
+          f"{p.graph.size_nodes()} nodes, {p.graph.size_edges()} edges, mesh {mesh.num_vertices} vertices")
+    group_size = ST.INTRINSICS_GROUP_SIZE
+    ST.INTRINSICS_GROUP_SIZE = SHARED_GROUP_SIZE
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            surfaces = copy.deepcopy(p.surfaces)
+            batch, solved, info, seconds = _shared_solve(p.graph, p.gps_positions, dict(p.model_store), surfaces, device)
+            lay = batch.layout
+            for name in ("mesh_z", "focal", "principal", "radial", "tangential"):
+                leaf = getattr(solved, name)
+                if not all(np.array_equal(leaf[0], leaf[g]) for g in range(1, batch.num_groups)):
+                    raise AssertionError(f"on {device} the groups' copies of {name} differ")
+            print(f"[shared] {device}: {batch.num_groups} groups, layout C {lay.C} V {lay.V} M {lay.M} (T = {lay.dim}), "
+                  f"{int(info.iterations)} LM iterations in {seconds:.3f} s, cost {float(info.initial_cost):.6g} -> "
+                  f"{float(info.final_cost):.6g}, focal {float(batch.params.focal[0, 0]):.4f} -> "
+                  f"{float(solved.focal[0, 0]):.4f}; every group's shared tail equal bit for bit")
+            quats = {}
+            for g, b in enumerate(batch.builts):
+                pg = GS.extract_group_params(batch, solved, g)
+                for nid, slot in b.cam_index.items():
+                    if slot < b.num_opt:
+                        quats.setdefault(nid, pg.quats[slot])
+            out[device] = (float(solved.focal[0, 0]), quats, int(info.iterations))
+    finally:
+        ST.INTRINSICS_GROUP_SIZE = group_size
+    (f_gpu, q_gpu, _), (f_cpu, q_cpu, _) = out["cuda"], out["cpu"]
+    if q_gpu.keys() != q_cpu.keys():
+        raise AssertionError("the CUDA and CPU groups hold different cameras")
+    ang = np.asarray([_angles_deg(q_gpu[k], q_cpu[k]) for k in sorted(q_gpu)])
+    rel = abs(f_gpu - f_cpu) / f_cpu
+    print(f"[shared] CUDA vs CPU (float32): focal {f_gpu:.4f} vs {f_cpu:.4f} ({rel:.2e} relative, bound "
+          f"{SHARED_FOCAL_REL}); orientations max {ang.max():.5f} deg apart (bound {SHARED_DEG})")
+    if not (np.isfinite(ang).all() and rel <= SHARED_FOCAL_REL and ang.max() <= SHARED_DEG):
+        raise AssertionError("the shared solver's CUDA and CPU results disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -680,11 +968,16 @@ def main():
     del p
     with tempfile.TemporaryDirectory() as d:
         mesh_launches = phase_mesh_refinement(d)
+    with tempfile.TemporaryDirectory() as d:
+        calib_launches = phase_camera_relax(d)
+    phase_shared_solver()
     _assert_standalone("end")
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
-        launches=mesh_launches,
-        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, relief": mesh_launches,
+        launches=calib_launches,
+        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX with CAMERA_PARAMETER_RELAX, 24 images, relief":
+               calib_launches,
+               "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 12 images, relief": mesh_launches,
                "pipeline INITIAL_PROCESSING, flat": ip_launches, "calibration_step": step_launches},
         **kernel,
     )]}))

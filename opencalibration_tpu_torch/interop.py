@@ -9,10 +9,11 @@ package's constructors take as keyword arguments, e.g.
 Packed descriptors are uint32 on the JAX side and int32 bit patterns here;
 the conversion is a reinterpretation of the same bits in both directions.
 
-The host containers (measurement graph, its node and edge payloads, surface
-models and meshes) are read by attribute and rebuilt, with copied arrays,
-from a ``types.graph`` module and a mesh class: the port's own by default,
-the JAX package's when a test passes them in to go back.
+The host containers (measurement graph, its node and edge payloads, node
+poses, surface models and meshes) are read by attribute and rebuilt, with
+copied arrays, from a ``types.graph`` module and a mesh class: the port's own
+by default, the JAX package's when a test passes them in to go back. A camera
+model store and a relax option set cross the same way.
 """
 
 from __future__ import annotations
@@ -51,6 +52,33 @@ def camera_from(model, device) -> CameraModel:
 
 def camera_to_numpy(model: CameraModel) -> dict:
     return dict({k: to_numpy(getattr(model, k)) for k in LEAVES}, tag=model.tag)
+
+
+def model_store_from(models: dict, device="cpu") -> dict:
+    """A JAX-package model store {model id: CameraModel} -> the port's, each
+    model in its own dtype on ``device`` (the pipeline keeps its store on the
+    host)."""
+    return {mid: camera_from(m, device) for mid, m in models.items()}
+
+
+def model_store_to_numpy(models: dict) -> dict:
+    """The port's model store -> {model id: keyword arguments of numpy
+    leaves} for the JAX package's ``CameraModel``."""
+    return {mid: camera_to_numpy(m) for mid, m in models.items()}
+
+
+def relax_options_from(options, cls=None):
+    """A relax option set -> ``cls`` (the port's ``RelaxOptions`` by
+    default), by the fields both have."""
+    if cls is None:
+        from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions as cls
+    return cls(**{f.name: getattr(options, f.name) for f in dataclasses.fields(cls) if hasattr(options, f.name)})
+
+
+def node_poses_from(poses, types=_graph) -> list:
+    """A list of ``NodePose`` -> ``types.NodePose`` with copied arrays."""
+    return [types.NodePose(node_id=p.node_id, orientation=np.array(p.orientation, np.float64),
+                           position=np.array(p.position, np.float64)) for p in poses]
 
 
 def relax_params_from(params, device) -> RelaxParams:

@@ -1,5 +1,6 @@
 """Pipeline facade and state machine (twin of
-opencalibration_tpu/pipeline/pipeline.py), through FINAL_GLOBAL_RELAX.
+opencalibration_tpu/pipeline/pipeline.py), through FINAL_GLOBAL_RELAX, with
+checkpoints.
 
 ``Pipeline()`` (on the card; ``device="cpu"`` to run on the CPU) takes image
 paths with ``add`` and advances with ``iterate_once``. INITIAL_PROCESSING is software-pipelined across calls: batch
@@ -8,9 +9,13 @@ every image is loaded, linked and relaxed. MESH_REFINEMENT then alternates a
 ground-mesh relax with one point-density refinement of the mesh, level by
 level; INITIAL_GLOBAL_RELAX (skipped by default) and FINAL_GLOBAL_RELAX run
 the same ground-mesh relax over every image, reusing the problem structure
-across their passes. CAMERA_PARAMETER_RELAX runs only when skipped
-(``skip_camera_param_relax``); it and every state after FINAL_GLOBAL_RELAX
-raise ``NotImplementedError`` naming their ROADMAP item.
+across their passes. CAMERA_PARAMETER_RELAX runs the same relax with the
+camera intrinsics free, tier by tier (focal; then the radial terms one at a
+time; then the principal point), over one cached problem structure, and
+refits every edge once at its end. Every state after FINAL_GLOBAL_RELAX
+raises ``NotImplementedError`` naming its ROADMAP item.
+``save_checkpoint`` / ``load_checkpoint`` write and read the state, the graph
+with its camera models, and the surfaces.
 
 The pipeline holds its device and the dtype of its relax problems
 explicitly: float32 on a GPU, float64 where a parity test holds it against
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
-from opencalibration_tpu_torch.pipeline.stages import LinkStage, LoadStage, RelaxStage
+from opencalibration_tpu_torch.pipeline.stages import LinkStage, LoadStage, RelaxStage, refit_all_edges
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
 from opencalibration_tpu_torch.surface.mesh import build_minimal_mesh
 from opencalibration_tpu_torch.surface.refine import merge_surface_models, refine_by_point_density
@@ -64,7 +69,6 @@ FINAL_RELAX_MAX_ITERATIONS = 3  # FINAL_GLOBAL_RELAX: its last pass is one group
 
 # where each state not ported yet stands in ROADMAP.md (queue 1)
 _NOT_PORTED = {
-    PipelineState.CAMERA_PARAMETER_RELAX: "queue 1, B3 (CAMERA_PARAMETER_RELAX)",
     PipelineState.GENERATE_THUMBNAIL: "queue 1, Slice C (the ortho tail)",
     PipelineState.DENSIFY_MESH: "queue 1, Slice D (dense stereo)",
     PipelineState.DENSE_MESH_RELAX: "queue 1, Slice D (dense stereo)",
@@ -171,6 +175,16 @@ class Pipeline:
             self._state_run_count = 0
             return True
         return False
+
+    def save_checkpoint(self, directory: str) -> bool:
+        from opencalibration_tpu_torch.io.checkpoint import save_checkpoint
+
+        return save_checkpoint(directory, self)
+
+    def load_checkpoint(self, directory: str) -> bool:
+        from opencalibration_tpu_torch.io.checkpoint import load_checkpoint
+
+        return load_checkpoint(directory, self)
 
     def iterate_once(self) -> str:
         state = self._state
@@ -372,7 +386,10 @@ class Pipeline:
     def _relax_structure_key(self, options: RelaxOptions, trim, last) -> tuple:
         """Cache key of the relax problem STRUCTURE: whatever changes
         measurement selection, block families or group membership. Values
-        (poses, mesh heights) are refreshed on reuse instead."""
+        (poses, mesh heights, intrinsics) are refreshed on reuse instead. The
+        radial tier is not structural: the monotonicity prior is built with
+        any intrinsics and switched by its weight, so the whole
+        camera-parameter schedule reuses one structure."""
         mesh_topo = tuple((s.mesh.num_vertices, s.mesh.num_triangles) for s in self.surfaces if s.mesh is not None)
         struct = (
             options.ground_mesh, options.ground_plane, options.points_3d, options.any_intrinsics,
@@ -418,12 +435,26 @@ class Pipeline:
         return "NEXT" if self._state_run_count >= RELAX_MAX_ITERATIONS else "REPEAT"
 
     def _run_camera_parameter_relax(self) -> str:
+        """The ground-mesh relax with intrinsics free, by run count: focal
+        (passes 0 and 1), plus one more radial term each pass (2, 3), then
+        all three with the principal point. All groups take part: several
+        groups are coupled through their shared camera models by the joint
+        solver. After the last pass every edge is refitted once with the
+        final intrinsics, which invalidates the next state's cached plan."""
         if self.skip_camera_param_relax:
             return "NEXT"
-        raise NotImplementedError(
-            f"pipeline state CAMERA_PARAMETER_RELAX is not ported yet: ROADMAP "
-            f"{_NOT_PORTED[PipelineState.CAMERA_PARAMETER_RELAX]}; set skip_camera_param_relax to pass it"
+        rc = self._state_run_count
+        options = RelaxOptions(
+            orientation=True, ground_mesh=True, focal=True,
+            radial_tier=min(max(rc - 1, 0), 3), principal=rc >= 4,
         )
+        relaxed = self._global_relax(options, trim=None, last=False)
+        self._emit([], [], relaxed, "camera parameter relax", surfaces_updated=True)
+        if self._state_run_count >= RELAX_MAX_ITERATIONS:
+            refit_all_edges(self.graph, self.model_store, dtype=self.dtype, device=self.device)
+            self._edges_version += 1
+            return "NEXT"
+        return "REPEAT"
 
     def _run_final_global_relax(self) -> str:
         if self.skip_final_global_relax:

@@ -11,7 +11,13 @@ opencalibration_tpu/pipeline/stages.py).
 * RelaxStage: spectral clustering into bounded groups, each built as one
   relax problem (with a depth-2 halo of neighbours when there is one group)
   and solved on the device; a ``RelaxPlan`` carries the built problems and
-  their final damping from one pass of a relax state to the next.
+  their final damping from one pass of a relax state to the next. Several
+  groups that optimise intrinsics are stacked into one batch and solved
+  jointly with their camera models shared
+  (``group_solver.solve_group_batch_shared``);
+* ``refit_all_edges``: after the intrinsics changed, every edge's homography
+  is fitted again from its previous inliers and decomposed, in buckets of
+  edges of one padded match count.
 
 Every stage sorts its results into a canonical order before it changes the
 graph, so a run is deterministic. The graph, its payloads and the camera
@@ -49,7 +55,14 @@ from opencalibration_tpu_torch.ops import models as M
 from opencalibration_tpu_torch.ops import ransac as R
 from opencalibration_tpu_torch.ops.clustering import spectral_cluster
 from opencalibration_tpu_torch.ops.spatial import spatial_subsample
-from opencalibration_tpu_torch.parallel.group_solver import solve_groups
+from opencalibration_tpu_torch.parallel.group_solver import (
+    build_group_batch,
+    extract_group_params,
+    fetch_solved,
+    refresh_group_batch,
+    solve_group_batch_shared,
+    solve_groups,
+)
 from opencalibration_tpu_torch.relax.lm import DEFAULT_MAX_ITERATIONS
 from opencalibration_tpu_torch.relax.problem_builder import (
     RelaxOptions,
@@ -68,7 +81,7 @@ from opencalibration_tpu_torch.types.graph import (
     RelationType,
     SurfaceModel,
 )
-from opencalibration_tpu_torch.utils.device import resolve_device
+from opencalibration_tpu_torch.utils.device import full_fp32, resolve_device
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, add_event_count
 
 MAX_FEATURES = 2048
@@ -78,6 +91,7 @@ LINK_CHUNK = 16  # pairs per device call, padded to this
 COARSE_SPACING_PIXELS = 40.0  # link subset grid at <= 1600 px images
 KNN_NEIGHBOURS = 10
 POSE_GROUP_SIZE = 50
+INTRINSICS_GROUP_SIZE = 150
 
 
 def _match_and_ransac_batch(
@@ -411,6 +425,11 @@ class RelaxGroupState:
     poses: List[NodePose]
     cam_models: Dict[int, CameraModel]
     edge_ids: List[int]
+    # node ids whose solved poses ``finalize`` writes to the graph; None: all.
+    # A multi-group intrinsics run writes only each group's own nodes: the
+    # halo duplicates across groups are co-optimised in the group and written
+    # by their home group
+    write_ids: Optional[set] = None
 
 
 @dataclasses.dataclass
@@ -426,13 +445,15 @@ class RelaxPlan:
     builts: list  # Optional[BuiltProblem] per group
     pre_solve: bool
     warm_lambda: Optional[list] = None  # final damping per live group
+    batch: object = None  # the stacked GroupBatch of a shared-intrinsics solve
 
 
 class RelaxStage:
     """Spectral-clustered group relaxation. Each group is built as one relax
     problem in ``dispatch`` (host work plus the per-row device pass) and
-    solved in ``join``, one group after another, in the stage's ``dtype`` on
-    its ``device``."""
+    solved in ``join`` in the stage's ``dtype`` on its ``device``: one group
+    after another, or, when several groups optimise intrinsics, as one joint
+    problem with the camera models and the surface shared."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32):
         self.device = resolve_device(device)
@@ -442,7 +463,7 @@ class RelaxStage:
         self._surfaces: List[SurfaceModel] = []
         self._plan: Optional[RelaxPlan] = None  # set by reuse_plan
         self.last_plan: Optional[RelaxPlan] = None  # the plan of the last dispatch
-        self._inflight = None  # (builts, live, pre_solve, warm lambdas) between dispatch and join
+        self._inflight = None  # (builts, live, pre_solve, warm lambdas, batch) between dispatch and join
         self.max_lm_iterations: Optional[int] = None  # None: the LM's default cap
 
     def init(
@@ -456,12 +477,9 @@ class RelaxStage:
         options: RelaxOptions,
     ):
         """Groups of the given nodes (of every node with ``relax_all``): one
-        group when ``disable_parallelism`` or up to POSE_GROUP_SIZE nodes,
-        spectral clusters beyond."""
-        if options.any_intrinsics:
-            raise NotImplementedError(
-                "intrinsics relax groups are not ported yet: ROADMAP queue 1, B3 (CAMERA_PARAMETER_RELAX)"
-            )
+        group when ``disable_parallelism`` or up to the group size
+        (POSE_GROUP_SIZE, or INTRINSICS_GROUP_SIZE with intrinsics in the
+        options), spectral clusters beyond."""
         self._options = options
         self._surfaces = []
         self._groups = []
@@ -475,7 +493,8 @@ class RelaxStage:
         ]
         if not ids:
             return
-        if disable_parallelism or len(ids) <= POSE_GROUP_SIZE:
+        group_size = INTRINSICS_GROUP_SIZE if options.any_intrinsics else POSE_GROUP_SIZE
+        if disable_parallelism or len(ids) <= group_size:
             labels = np.zeros(len(ids), np.int64)
         else:
             idx_of = {nid: k for k, nid in enumerate(ids)}
@@ -485,7 +504,7 @@ class RelaxStage:
                     edges.append((idx_of[e.source], idx_of[e.dest]))
                     weights.append(max(1.0, float(len(e.payload.inlier_idx1))))
             pts = np.stack([np.asarray(graph.get_node(i).payload.position)[:2] for i in ids])
-            labels = spectral_cluster(len(ids), edges, weights, pts, POSE_GROUP_SIZE)
+            labels = spectral_cluster(len(ids), edges, weights, pts, group_size)
 
         by_label: Dict[int, List[int]] = {}
         for nid, lab in zip(ids, labels):
@@ -503,7 +522,15 @@ class RelaxStage:
         the edges to each node's 10 GPS nearest neighbours. Each round of
         ``connection_depth`` adds the connected out-of-group nodes as
         co-optimised poses; an edge is optimised iff its other end is in the
-        original group."""
+        original group.
+
+        With intrinsics in the options a group also takes the edges that
+        leave it from one of its own nodes (each cross-group edge is owned by
+        its source's group, so the joint objective counts it once). The
+        far end joins as a co-optimised duplicate that its home group writes
+        back: a frozen copy would pin the shared surface and intrinsics at
+        their entry values. Such groups carry the whole model store, so all
+        of them list the same camera models."""
         import scipy.spatial
 
         core = set(g_ids)
@@ -512,6 +539,12 @@ class RelaxStage:
         id_arr = np.asarray(ids)
         edge_ids = set()
         directly_connected = set()
+        cross_ok = self._options.any_intrinsics
+        cross_halo = set()
+
+        def posed(node):
+            return (node is not None and np.isfinite(np.asarray(node.payload.orientation)).all()
+                    and np.isfinite(np.asarray(node.payload.position)).all())
 
         def build_edges(nid):
             if tree is None or nid not in gps_positions:
@@ -525,6 +558,9 @@ class RelaxStage:
                     directly_connected.add(other)
                     if other in core:
                         edge_ids.add(eid)
+                    elif cross_ok and nid in core and e.source == nid and posed(graph.get_node(other)):
+                        edge_ids.add(eid)
+                        cross_halo.add(other)
 
         local = list(g_ids)
         for nid in g_ids:
@@ -536,9 +572,11 @@ class RelaxStage:
                     continue
                 local.append(nid)
                 build_edges(nid)
+        cross_halo -= set(local)
+        local.extend(sorted(cross_halo))
 
         poses = []
-        cam_models: Dict[int, CameraModel] = {}
+        cam_models: Dict[int, CameraModel] = dict(model_store) if self._options.any_intrinsics else {}
         for nid in sorted(local, key=lambda i: graph.get_node(i).payload.path):
             node = graph.get_node(nid)
             poses.append(NodePose(
@@ -549,7 +587,8 @@ class RelaxStage:
             mid = node.payload.model_id
             if mid not in cam_models and mid in model_store:
                 cam_models[mid] = model_store[mid]
-        return RelaxGroupState(poses=poses, cam_models=cam_models, edge_ids=sorted(edge_ids))
+        return RelaxGroupState(poses=poses, cam_models=cam_models, edge_ids=sorted(edge_ids),
+                               write_ids=set(g_ids) if cross_halo else None)
 
     def trim_groups(self, n: int):
         """Keep only the n biggest groups."""
@@ -589,7 +628,7 @@ class RelaxStage:
         self._surfaces = [SurfaceModel() for _ in self._groups]
         if not self._groups:
             return
-        builts, pre_solve, warm = None, False, None
+        builts, pre_solve, warm, cached_batch = None, False, None, None
         if self._plan is not None:
             with PerformanceMeasure("relax refresh problems"):
                 ok = all(
@@ -598,6 +637,7 @@ class RelaxStage:
                 )
             if ok:
                 builts, pre_solve, warm = self._plan.builts, self._plan.pre_solve, self._plan.warm_lambda
+                cached_batch = self._plan.batch
                 add_event_count("relax plan reuses", 1.0)
             self._plan = None
         if builts is None:
@@ -611,50 +651,173 @@ class RelaxStage:
                     builts.append(built)
                     pre_solve = pre_solve or (pre and built is not None)
         live = [i for i, b in enumerate(builts) if b is not None]
-        if live:
-            self.last_plan = RelaxPlan(key=(), groups=self._groups, builts=builts, pre_solve=pre_solve)
-            self._inflight = (builts, live, pre_solve, warm)
+        if not live:
+            return
+        self.last_plan = RelaxPlan(key=(), groups=self._groups, builts=builts, pre_solve=pre_solve)
+        # several groups optimising the SAME camera models: one joint solve
+        # with the intrinsics (and the surface) shared across the groups
+        batch = None
+        if self._options.any_intrinsics and len(live) > 1:
+            with PerformanceMeasure("relax batch groups"):
+                if cached_batch is not None and cached_batch.shared_intrinsics:
+                    batch = refresh_group_batch(cached_batch)  # values, masks and anchors only
+                else:
+                    batch = build_group_batch([builts[i] for i in live], shared_intrinsics=True)
+            self.last_plan.batch = batch
+        self._inflight = (builts, live, pre_solve, warm, batch)
 
     def join(self):
         """Solve the dispatched groups and write the results back into the
         groups' working sets."""
         if self._inflight is None:
             return
-        builts, live, pre_solve, warm = self._inflight
+        builts, live, pre_solve, warm, batch = self._inflight
         self._inflight = None
+        iters = self.max_lm_iterations or DEFAULT_MAX_ITERATIONS
         with PerformanceMeasure("relax solve"):
-            solved, infos = solve_groups(
-                [builts[i] for i in live], pre_solve,
-                max_iterations=self.max_lm_iterations or DEFAULT_MAX_ITERATIONS, init_lambda=warm,
-            )
-            add_event_count("lm iterations", float(sum(int(info.iterations) for info in infos)))
-        self.last_plan.warm_lambda = [info.final_lambda for info in infos]
+            if batch is not None:
+                stacked, info = solve_group_batch_shared(batch, pre_solve, max_iterations=iters)
+                add_event_count("lm iterations", float(info.iterations))
+                stacked = fetch_solved(stacked)
+                solved = [extract_group_params(batch, stacked, k) for k in range(len(live))]
+            else:
+                solved, infos = solve_groups([builts[i] for i in live], pre_solve, max_iterations=iters,
+                                             init_lambda=warm)
+                add_event_count("lm iterations", float(sum(int(info.iterations) for info in infos)))
+                self.last_plan.warm_lambda = [info.final_lambda for info in infos]
+        # solved intrinsics go into the group's models only where the options
+        # freed them; otherwise the leaves are the entry models' own
+        write_models = self._options.any_intrinsics
         with PerformanceMeasure("relax writeback"):
             for params, i in zip(solved, live):
                 g = self._groups[i]
-                self._surfaces[i] = apply_solution(builts[i], params, g.poses)
+                self._surfaces[i] = apply_solution(builts[i], params, g.poses, g.cam_models if write_models else None)
 
-    def finalize(self, graph: MeasurementGraph, model_store: Optional[Dict[int, CameraModel]] = None,
-                 refit: bool = False) -> List[int]:
-        """Write the relaxed poses back to the graph. No ported problem
-        optimises intrinsics, so camera models are never written and edges
-        never refitted (ROADMAP queue 1, B3)."""
-        if refit or self._options.any_intrinsics:
-            raise NotImplementedError(
-                "intrinsics write-back and edge refits are not ported yet: "
-                "ROADMAP queue 1, B3 (CAMERA_PARAMETER_RELAX)"
-            )
+    def finalize(self, graph: MeasurementGraph, model_store: Dict[int, CameraModel],
+                 refit: bool = True) -> List[int]:
+        """Write the relaxed poses back to the graph and, after a relax with
+        intrinsics, the groups' camera models into ``model_store``; then
+        ``refit`` fits every edge again with the new models. The pipeline
+        passes ``refit=False`` and refits once at the end of
+        CAMERA_PARAMETER_RELAX, which also keeps the cached problem structure
+        valid across the option tiers."""
         optimized = []
+        model_changed = self._options.any_intrinsics
         for g in self._groups:
             for pose in g.poses:
+                if g.write_ids is not None and pose.node_id not in g.write_ids:
+                    continue  # a halo duplicate: its home group writes it
                 node = graph.get_node(pose.node_id)
                 if node is None:
                     continue
                 node.payload.orientation = pose.orientation
                 node.payload.position = pose.position
                 optimized.append(pose.node_id)
+            if model_changed:
+                model_store.update(g.cam_models)
+        if model_changed and refit:
+            refit_all_edges(graph, model_store, dtype=self.dtype, device=self.device)
         self._groups = []
         return sorted(set(optimized))
 
     def surfaces(self) -> List[SurfaceModel]:
         return self._surfaces
+
+
+REFIT_ROUNDS = 3
+
+
+def _refit_edges_batch(px1, px2, valid, w0, models1: CameraModel, models2: CameraModel):
+    """A bucket of E edges at once: undistort the matches [E, N, 2] to rays,
+    then REFIT_ROUNDS times fit the weighted homography and take the matches
+    under the inlier threshold as the next weights; decompose the last fit
+    into its four poses and score them. Returns (H [E, 3, 3], inliers [E, N],
+    quats [E, 4, 4], t_src [E, 4, 3], scores [E, 4]), candidates in the
+    decomposition's order."""
+    with full_fp32():
+        r1, r2 = D.distort_keypoints(px1, px2, models1, models2)
+        p1, p2 = M.hnormalize(r1), M.hnormalize(r2)
+        w = w0
+        for _ in range(REFIT_ROUNDS):
+            Hm = M.homography_fit_weighted(p1, p2, w)
+            err = M.homography_error(Hm, p1, p2)
+            w = ((err < M.HOMOGRAPHY_INLIER_THRESHOLD) & valid).to(w0.dtype)
+        Rs, ts, nrm, _ = M.homography_decompose(Hm)
+        scores = M.score_homography_poses(Rs, ts, nrm, r1, r2, w)
+        quats = M.poses_to_quaternions(Rs)
+        t_src = -(Rs.transpose(-1, -2) @ ts[..., None])[..., 0]
+    return Hm, w > 0, quats, t_src, scores
+
+
+def refit_all_edges(graph: MeasurementGraph, model_store: Dict[int, CameraModel], *, dtype, device):
+    """Fit every edge's homography again from its previous inliers after the
+    camera models changed: a deterministic three-round refit over all of the
+    edge's matches, bucketed by padded match count, one device call a bucket.
+    An edge keeps its new inliers when more than 6 remain and its best pose
+    scores above 0; otherwise its inlier lists are emptied."""
+    with PerformanceMeasure("refit all edges"):
+        _refit_all_edges(graph, model_store, dtype, resolve_device(device))
+
+
+def _refit_all_edges(graph, model_store, dtype, device):
+    entries = []
+    for _, e in sorted(graph.edges()):
+        rel = e.payload
+        n = len(rel.match_idx1)
+        if n == 0:
+            continue
+        ns, nd = graph.get_node(e.source), graph.get_node(e.dest)
+        px1 = ns.payload.features.xy[rel.match_idx1]
+        px2 = nd.payload.features.xy[rel.match_idx2]
+        inliers = np.zeros(n, bool)
+        inliers[rel.inlier_match_index[rel.inlier_match_index < n]] = True
+        if inliers.sum() < 4:
+            continue
+        entries.append((e, n, px1, px2, inliers, model_store[ns.payload.model_id], model_store[nd.payload.model_id]))
+
+    buckets: Dict[int, list] = {}
+    for entry in entries:
+        buckets.setdefault(_bucket(entry[1], minimum=16), []).append(entry)
+
+    def on_device(m: CameraModel) -> CameraModel:
+        return m.map(lambda x: x.to(device=device, dtype=dtype))
+
+    for nb in sorted(buckets):
+        group = buckets[nb]
+        padded = group + [group[-1]] * (_bucket(len(group), minimum=1) - len(group))
+
+        def stacked(rows, fill=0):
+            return torch.as_tensor(np.stack([_pad_rows(r, nb, fill=fill) for r in rows]), device=device)
+
+        out = _refit_edges_batch(
+            stacked([g[2].astype(np.float64) for g in padded]).to(dtype),
+            stacked([g[3].astype(np.float64) for g in padded]).to(dtype),
+            stacked([np.ones(g[1], bool) for g in padded], fill=False),
+            stacked([g[4].astype(np.float64) for g in padded]).to(dtype),
+            stack_cameras([on_device(g[5]) for g in padded]),
+            stack_cameras([on_device(g[6]) for g in padded]),
+        )
+        Hm_b, inl_b, quats_b, t_b, scores_b = (interop.to_numpy(t) for t in out)
+        for i, (e, n, epx1, epx2, _, _, _) in enumerate(group):
+            rel = e.payload
+            inl = inl_b[i, :n]
+            scores = scores_b[i]
+            rel.ransac_relation = Hm_b[i].astype(np.float64)
+            rel.relation_type = RelationType.HOMOGRAPHY
+            order = np.argsort(-scores, kind="stable")
+            rel.rel_quats = quats_b[i][order]
+            rel.rel_positions = t_b[i][order]
+            rel.rel_scores = scores[order]
+            if inl.sum() > 4 * 1.5 and scores[order[0]] > 0:
+                keep = np.where(inl)[0]
+                rel.inlier_idx1 = rel.match_idx1[keep]
+                rel.inlier_idx2 = rel.match_idx2[keep]
+                rel.inlier_pixel1 = epx1[keep]
+                rel.inlier_pixel2 = epx2[keep]
+                rel.inlier_match_index = keep.astype(np.int32)
+            else:
+                rel.inlier_idx1 = np.zeros(0, np.int32)
+                rel.inlier_idx2 = np.zeros(0, np.int32)
+                rel.inlier_pixel1 = np.zeros((0, 2))
+                rel.inlier_pixel2 = np.zeros((0, 2))
+                rel.inlier_match_index = np.zeros(0, np.int32)

@@ -1,13 +1,13 @@
-"""Residual blocks for bundle adjustment (twin of the relative-orientation,
-downwards-prior, plane-ray and mesh-prior families of
-opencalibration_tpu/relax/blocks.py).
+"""Residual blocks for bundle adjustment (twin of
+opencalibration_tpu/relax/blocks.py: the relative-orientation,
+downwards-prior, pixel-error, plane-ray, mesh-prior and radial-monotonicity
+families).
 
 A block family is a per-instance function ``resid_one(delta_local, data,
 params)``: ``delta_local`` is the instance's slice of the tangent step,
 ``data`` its measurements, and the function gathers current parameters by
 index. The LM solver maps it over instances with ``torch.func.vmap`` and
-differentiates it with ``torch.func.jacfwd`` at delta = 0. The pixel-error
-and monotonicity families are not ported yet.
+differentiates it with ``torch.func.jacfwd`` at delta = 0.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from opencalibration_tpu_torch.ops.distort import image_to_3d
+from opencalibration_tpu_torch.ops.distort import image_from_3d, image_to_3d
 from opencalibration_tpu_torch.ops.intersection import (
     corner_plane_to_norm_offset,
     ray_plane_intersection,
@@ -36,7 +36,7 @@ from opencalibration_tpu_torch.ops.quaternion import (
     quat_rotate_inverse,
 )
 from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
-from opencalibration_tpu_torch.types.camera import INVERSE, CameraModel
+from opencalibration_tpu_torch.types.camera import FORWARD, INVERSE, CameraModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +133,49 @@ def downwards_prior_block(layout: TangentLayout, cam_i, weight, prior_weight=1e-
     return BlockSpec(
         slots=layout.rot_slots(cam_i), data=data, weight=weight,
         resid_one=_downwards_resid, num_residuals=1, name="downwards_prior",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Pixel reprojection error of a 3-d point through a FORWARD model
+# ---------------------------------------------------------------------------
+
+
+def _pixel_error_resid(delta, d, params: RelaxParams):
+    m = d["model_i"]
+    q = quat_normalize(quat_boxplus(params.quats[d["cam_i"]], delta[0:3]))
+    pt = params.points[d["point_i"]] + delta[3:6]
+    zero = torch.zeros_like(params.focal[m])
+    model = CameraModel(
+        focal_length_pixels=params.focal[m] + delta[6],
+        principal_point=params.principal[m] + delta[7:9],
+        radial_distortion=params.radial[m] + delta[9:12],
+        tangential_distortion=params.tangential[m] + delta[12:14],
+        pixels_cols=zero,
+        pixels_rows=zero,
+        tag=FORWARD,
+    )
+    ray = quat_rotate_inverse(q, pt - params.positions[d["cam_i"]])
+    # projected as a batch of one: on 0-d float32 coordinates jacfwd gives
+    # float64 tangents
+    return image_from_3d(ray[None], model)[0] - d["pixel"]
+
+
+def pixel_error_block(layout: TangentLayout, cam_i, point_i, model_i, pixel, weight,
+                      huber_delta: float | None = 10.0) -> BlockSpec:
+    """Local tangent (L = 14): rotation, point, focal, principal point,
+    radial and tangential terms. 2 residuals (pixels)."""
+    slots = torch.cat(
+        [
+            layout.rot_slots(cam_i), layout.point_slots(point_i), layout.focal_slot(model_i),
+            layout.principal_slots(model_i), layout.radial_slots(model_i), layout.tangential_slots(model_i),
+        ],
+        dim=-1,
+    )
+    data = dict(cam_i=cam_i, point_i=point_i, model_i=model_i, pixel=pixel)
+    return BlockSpec(
+        slots=slots, data=data, weight=weight, resid_one=_pixel_error_resid,
+        num_residuals=2, huber_delta=huber_delta, name="pixel_error",
     )
 
 
@@ -347,4 +390,33 @@ def mesh_smooth_block(layout: TangentLayout, vA, vB, vC, vD, xyA, xyB, xyC, xyD,
     return BlockSpec(
         slots=slots, data=data, weight=weight, resid_one=_smooth_resid,
         num_residuals=1, name="mesh_smooth",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Radial monotonicity penalty
+# ---------------------------------------------------------------------------
+
+_MONOTONICITY_SAMPLES = 10
+
+
+def _monotonicity_resid(delta, d, params: RelaxParams):
+    """The derivative of the radial polynomial r (1 + k1 r^2 + k2 r^4 + k3 r^6)
+    at 10 radii up to ``r_max``, penalised where it turns negative (the model
+    would fold the image over itself there)."""
+    radial = params.radial[d["model_i"]] + delta[0:3]
+    i = torch.arange(1, _MONOTONICITY_SAMPLES + 1, dtype=radial.dtype, device=radial.device)
+    r = d["r_max"] * i / _MONOTONICITY_SAMPLES
+    r2 = r * r
+    deriv = 1.0 + 3.0 * radial[0] * r2 + 5.0 * radial[1] * r2 * r2 + 7.0 * radial[2] * r2 * r2 * r2
+    return torch.where(deriv < 0, -d["w"] * deriv, torch.zeros_like(deriv))
+
+
+def monotonicity_block(layout: TangentLayout, model_i, r_max, obs_weight, weight):
+    """One instance per camera model over its three radial slots; ``weight``
+    0 switches the prior off without changing the problem's structure."""
+    data = dict(model_i=model_i, r_max=r_max, w=obs_weight)
+    return BlockSpec(
+        slots=layout.radial_slots(model_i), data=data, weight=weight,
+        resid_one=_monotonicity_resid, num_residuals=_MONOTONICITY_SAMPLES, name="monotonicity",
     )

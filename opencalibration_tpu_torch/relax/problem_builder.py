@@ -10,9 +10,13 @@ and the camera-model inversion. Problems are built in an explicit ``dtype``
 on an explicit ``device``; the graph and the camera models stay on the host
 (models as float64 CPU ``CameraModel``s).
 
-``points_3d`` problems, and intrinsics in any problem, are not ported yet:
-they raise ``NotImplementedError`` naming their ROADMAP item rather than
-build a smaller problem.
+With intrinsics in the options a mesh problem takes the pixel form of the
+plane-ray block (focal, principal point and radial terms of one shared
+INVERSE model per camera model in the tangent) and the radial monotonicity
+prior; ``apply_solution`` converts a changed INVERSE model back to a FORWARD
+one. ``points_3d`` problems are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP item rather than build a
+smaller problem.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from opencalibration_tpu_torch.relax import blocks as B
 from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
 from opencalibration_tpu_torch.relax.tracks import build_multiray_tracks
 from opencalibration_tpu_torch.surface.mesh import TriMesh, build_minimal_mesh
-from opencalibration_tpu_torch.types.camera import CameraModel, stack_cameras, take_camera
+from opencalibration_tpu_torch.types.camera import INVERSE, CameraModel, stack_cameras, take_camera
 from opencalibration_tpu_torch.types.graph import MeasurementGraph, NodePose, SurfaceModel
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
 
@@ -266,8 +270,12 @@ def build_mesh_problem(
     device,
 ) -> Optional[BuiltProblem]:
     """Ground-plane or ground-mesh problem: plane-ray costs of rays against
-    the mesh triangle under their triangulated point, with fixed
-    camera-frame ray directions, plus the downwards prior.
+    the mesh triangle under their triangulated point, plus the downwards
+    prior. The rays are fixed camera-frame directions, or with any intrinsics
+    option the pixels themselves, undistorted through the shared INVERSE
+    model of their camera whose focal, principal point and radial terms are
+    then in the tangent; the radial monotonicity prior is built with them and
+    switched by its weight, so the option tiers change values and masks only.
 
     A ground-plane problem has one big triangle under the cameras and one
     two-ray row per kept inlier. A ground-mesh problem starts from the
@@ -279,10 +287,6 @@ def build_mesh_problem(
     ``options.grid_fraction``)."""
     if not (options.ground_plane or options.ground_mesh):
         raise ValueError("build_mesh_problem needs ground_plane or ground_mesh in the options")
-    if options.any_intrinsics:
-        raise NotImplementedError(
-            "intrinsics in relax problems are not ported yet: ROADMAP queue 1, B3 (CAMERA_PARAMETER_RELAX)"
-        )
     if grid_fraction is None:
         grid_fraction = options.grid_fraction
     floats, ids, flags = _tensors(dtype, device)
@@ -331,7 +335,7 @@ def build_mesh_problem(
     node_model = {nid: graph.get_node(nid).payload.model_id for nid in cam_index}
     fwd_models = {mid: on_device(m) for mid, m in cam_models.items()}
     # plane-ray rows as a few whole-array parts: tracks first, then 2-ray rows
-    b_vert, b_trixy, b_cam, b_valid, b_dir, b_model = [], [], [], [], [], []
+    b_vert, b_trixy, b_cam, b_valid, b_pix, b_dir, b_model = [], [], [], [], [], [], []
 
     # ---- multi-ray track rows (ground mesh only)
     used_measurements, covered_cells = set(), {}
@@ -349,6 +353,7 @@ def build_mesh_problem(
             b_cam.append(track_rows["cam_idx"])
             b_valid.append(track_rows["ray_valid"])
             b_model.append(np.asarray([model_index.get(int(v), 0) for v in uniq], np.int64)[inv])
+            b_pix.append(track_rows["pixel"])
             b_dir.append(track_rows["fixed_dir"])
 
     # ---- gather every usable edge's inlier rows
@@ -494,6 +499,8 @@ def build_mesh_problem(
                 b_cam.append(cam5)
                 b_valid.append(valid5)
                 b_model.append(model_row[re])
+                p1k, p2k = px1_all[cand], px2_all[cand]
+                b_pix.append(np.stack([p1k, p2k, p1k, p1k, p1k], axis=1))
                 b_dir.append(np.stack([r1k, r2k, r1k, r1k, r1k], axis=1))
     if not b_vert:
         return None
@@ -504,6 +511,10 @@ def build_mesh_problem(
         v_all = np.concatenate(b_vert)
         NB = len(v_all)
         nb = _bucket(NB, minimum=64)
+        if options.any_intrinsics:
+            rays = dict(pixel=floats(_pad_rows(np.concatenate(b_pix), nb)))
+        else:
+            rays = dict(fixed_dir=floats(_pad_rows(np.concatenate(b_dir), nb)))
         blocks = [
             B.plane_ray_block(
                 layout,
@@ -513,17 +524,26 @@ def build_mesh_problem(
                 ray_valid=flags(_pad_rows(np.concatenate(b_valid), nb, fill=False)),
                 weight=floats(_pad_rows(np.ones(NB), nb)),
                 model_i=ids(_pad_rows(np.concatenate(b_model), nb)),
-                fixed_dir=floats(_pad_rows(np.concatenate(b_dir), nb)),
+                **rays,
             ),
             B.downwards_prior_block(layout, ids(np.arange(len(quats))), floats(opt)),
         ]
         if options.ground_mesh:
             blocks += _mesh_prior_blocks(layout, mesh, floats, ids)
+        if options.any_intrinsics and inv_models:
+            # always present with intrinsics, weight 0 until a radial tier opens
+            slots = [model_index[mid] for mid in model_index]
+            blocks.append(B.monotonicity_block(
+                layout, ids(slots), floats([_monotonicity_r_max(cam_models[mid]) for mid in model_index]),
+                floats(np.full(len(slots), np.sqrt(NB / 10.0))),
+                floats(np.full(len(slots), _monotonicity_weight(options))),
+            ))
 
     mesh_free = np.arange(V_pad) < V_real
     free = layout.build_free_mask(
         rot_free=np.asarray(opt) if options.orientation else np.zeros(len(quats), bool),
-        mesh_free=mesh_free, device=device,
+        mesh_free=mesh_free, focal_free=options.focal, principal_free=options.principal,
+        radial_tiers=options.radial_tier, device=device,
     )
     surface_free = layout.build_free_mask(
         rot_free=np.zeros(len(quats), bool), mesh_free=mesh_free, device=device
@@ -535,6 +555,17 @@ def build_mesh_problem(
         track_points=track_points, track_errors=track_errors,
         kind="mesh", num_opt=len(node_poses), v_real=V_real,
     )
+
+
+def _monotonicity_r_max(model: CameraModel) -> float:
+    """The image's half diagonal in focal lengths: how far out the radial
+    polynomial has to stay monotonic."""
+    half = np.hypot(float(model.pixels_cols), float(model.pixels_rows)) / 2.0
+    return half / max(float(model.focal_length_pixels), 1.0)
+
+
+def _monotonicity_weight(options: RelaxOptions) -> float:
+    return 1.0 if options.radial_tier > 0 else 0.0
 
 
 def _mesh_prior_blocks(layout, mesh: TriMesh, floats, ids):
@@ -620,7 +651,8 @@ def refresh_problem(
             continue
         m = m.map(lambda x: x.to(device=device, dtype=dtype))
         if built.inverse_models:
-            m = D.convert_to_inverse(m)
+            with PerformanceMeasure("refresh: model inversion"):
+                m = D.convert_to_inverse(m)
         leaves["focal"][slot] = m.focal_length_pixels
         leaves["principal"][slot] = m.principal_point
         leaves["radial"][slot] = m.radial_distortion
@@ -633,31 +665,78 @@ def refresh_problem(
     rot_free = np.arange(C) < built.num_opt if options.orientation else np.zeros(C, bool)
     if built.kind == "mesh":
         mesh_free = np.arange(layout.V) < built.v_real
-        built.free_mask = layout.build_free_mask(rot_free=rot_free, mesh_free=mesh_free, device=device)
+        built.free_mask = layout.build_free_mask(
+            rot_free=rot_free, mesh_free=mesh_free, focal_free=options.focal,
+            principal_free=options.principal, radial_tiers=options.radial_tier, device=device,
+        )
         built.surface_free_mask = layout.build_free_mask(
             rot_free=np.zeros(C, bool), mesh_free=mesh_free, device=device
         )
 
-    # the anchor prior follows the pass-entry mesh
+    # the anchor prior follows the pass-entry mesh; the monotonicity prior
+    # follows the radial tier (its weight) and the current focal (r_max)
+    mid_of_slot = {slot: mid for mid, slot in built.model_index.items()}
     for i, blk in enumerate(built.blocks):
         if blk.name == "mesh_anchor":
             v_i = interop.to_numpy(blk.data["v_i"])
             data = dict(blk.data, target=floats(built.mesh.vertices[v_i, 2]))
             built.blocks[i] = dataclasses.replace(blk, data=data)
+        elif blk.name == "monotonicity":
+            r_max = np.array(interop.to_numpy(blk.data["r_max"]), np.float64)
+            for r, slot in enumerate(interop.to_numpy(blk.data["model_i"])):
+                m = cam_models.get(mid_of_slot.get(int(slot)))
+                if m is not None:
+                    r_max[r] = _monotonicity_r_max(m)
+            built.blocks[i] = dataclasses.replace(
+                blk, data=dict(blk.data, r_max=floats(r_max)),
+                weight=torch.full_like(blk.weight, _monotonicity_weight(options)),
+            )
     return True
 
 
-def apply_solution(built: BuiltProblem, params: RelaxParams, node_poses: Sequence[NodePose]) -> SurfaceModel:
-    """Write solved (host) orientations back into node_poses and build the
-    surface model: the solved mesh, and the cloud of triangulated points
-    whose two rays meet within 1 m^2 in front of both cameras. No ported
-    problem optimises intrinsics, so camera models are never written back
-    (ROADMAP queue 1, B3)."""
+def apply_solution(built: BuiltProblem, params: RelaxParams, node_poses: Sequence[NodePose],
+                   cam_models: Optional[Dict[int, CameraModel]] = None) -> SurfaceModel:
+    """Write solved (host) orientations back into node_poses, solved
+    intrinsics back into ``cam_models`` when given, and build the surface
+    model: the solved mesh, and the cloud of triangulated points whose two
+    rays meet within 1 m^2 in front of both cameras.
+
+    The solved intrinsics leaves are an INVERSE model's; where its focal or
+    radial terms differ from the stored FORWARD model, the model is replaced
+    by the conversion of the solved one, made in the problem's dtype on its
+    device and stored like the old one."""
     quats = np.asarray(params.quats)
     for np_ in node_poses:
         slot = built.cam_index.get(np_.node_id)
         if slot is not None:
             np_.orientation = quats[slot]
+
+    if cam_models is not None and built.inverse_models:
+        dtype, device = built.params.quats.dtype, built.params.quats.device
+
+        def leaf(x):
+            return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+        for mid, slot in built.model_index.items():
+            old = cam_models.get(mid)
+            if old is None:
+                continue
+            radial = np.asarray(params.radial)[slot]
+            focal = float(np.asarray(params.focal)[slot])
+            changed = not np.allclose(radial, -interop.to_numpy(old.radial_distortion), atol=1e-12) or not np.isclose(
+                focal, float(old.focal_length_pixels)
+            )
+            if not changed:
+                continue
+            inv = CameraModel(
+                focal_length_pixels=leaf(focal), principal_point=leaf(np.asarray(params.principal)[slot]),
+                radial_distortion=leaf(radial), tangential_distortion=leaf(np.asarray(params.tangential)[slot]),
+                pixels_cols=old.pixels_cols.to(device=device, dtype=dtype),
+                pixels_rows=old.pixels_rows.to(device=device, dtype=dtype), tag=INVERSE,
+            )
+            with PerformanceMeasure("writeback: model conversion"):
+                fwd = D.convert_to_forward(inv)
+            cam_models[mid] = fwd.map(lambda x: x.to(device=old.focal_length_pixels.device, dtype=old.dtype))
 
     surface = SurfaceModel()
     if built.mesh is not None:

@@ -130,14 +130,18 @@ def write_pgm(path, gray: np.ndarray):
 
 
 def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W, height=IMG_H,
-                 focal=FOCAL, texture=None, relief_amplitude=0.0, relief_wavelength=70.0, device):
+                 focal=FOCAL, focal_px_tag=None, texture=None, relief_amplitude=0.0, relief_wavelength=70.0,
+                 alt_pattern="row", device):
     """Render the survey and write ``IMG_<i>.pgm`` files with JSON sidecars
     (latitude, longitude, altitude, focal_length_px, camera make and model)
     into ``directory``. The texture spans the survey's footprint plus 60 m;
     its size defaults to the reference fixture's (512 px per 150 m, at most
     4096). ``relief_amplitude`` and ``relief_wavelength`` (metres) shape the
-    terrain, as in ``render_views``. Returns (paths, positions, quats)."""
-    positions, quats = camera_grid(rows, cols, spacing, seed + 1)
+    terrain, as in ``render_views``. ``focal_px_tag`` is the focal length
+    written into the geotags (default: the render's true ``focal``); a wrong
+    one gives the intrinsics calibration something to recover. Returns
+    (paths, positions, quats)."""
+    positions, quats = camera_grid(rows, cols, spacing, seed + 1, alt_pattern)
     extent = max(150.0, float(positions[:, :2].max()) + 60.0)
     if texture is None:
         texture = min(4096, max(512, int(extent / 150.0 * 512)))
@@ -155,7 +159,7 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
         with open(os.path.splitext(path)[0] + ".json", "w") as f:
             json.dump(dict(
                 latitude=float(lat), longitude=float(lon), altitude=float(positions[i][2]),
-                focal_length_px=float(focal), camera_make="Synthetic", camera_model="TestCam",
+                focal_length_px=float(focal if focal_px_tag is None else focal_px_tag), camera_make="Synthetic", camera_model="TestCam",
             ), f)
         paths.append(path)
     return paths, positions, quats

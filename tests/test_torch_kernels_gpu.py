@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernel against its plain PyTorch version.
+"""The port's hand-written CUDA kernel against its plain PyTorch version, and
+the port's solvers on the card against the CPU.
 
 Tests marked ``gpu`` need a CUDA device and skip without one; the device is
 looked up inside a fixture, so every worker collects the same tests. This
@@ -234,3 +235,89 @@ def test_ground_mesh_relax_cuda_matches_cpu(cuda, tmp_path):
         qa = torch.as_tensor(n.payload.orientation, dtype=torch.float64)
         qb = torch.as_tensor(nodes[n.payload.path], dtype=torch.float64)
         assert float(np.degrees(quat_angle(quat_multiply(qa, quat_conjugate(qb))))) < 0.1
+
+
+def _points_groups(device, dtype, groups=3, cams=4, side=4, focal=600.0, seed=0):
+    """Small bundle-adjustment groups that share one camera model, made
+    without JAX: per group ``cams`` nadir cameras at varied altitudes over a
+    ``side`` x ``side`` grid of points, pixels projected through the true
+    model, then orientations and points perturbed and the focal started 2 %
+    high. Returns the groups as built problems."""
+    from opencalibration_tpu_torch.ops.distort import image_from_3d_world
+    from opencalibration_tpu_torch.ops.quaternion import quat_boxplus, quat_normalize
+    from opencalibration_tpu_torch.relax import blocks as B
+    from opencalibration_tpu_torch.relax import problem_builder as PB
+    from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+    from opencalibration_tpu_torch.types.camera import CameraModel
+
+    rng = np.random.default_rng(seed)
+    floats, ids, _ = PB._tensors(dtype, device)
+    n_pts = side * side
+    layout = TangentLayout(cams, 0, n_pts, 1)
+    model = CameraModel.create(focal, (400.0, 300.0), pixels_cols=800, pixels_rows=600, dtype=torch.float64,
+                               device="cpu")
+    down = torch.tensor([0.0, 1.0, 0.0, 0.0], dtype=torch.float64)
+    gx, gy = np.meshgrid(np.arange(side), np.arange(side))
+    builts = []
+    for g in range(groups):
+        offset = np.asarray([100.0 * g, 0.0, 0.0])
+        positions = np.asarray([[9, 9, 9], [11, 9, 14], [11, 11, 20], [9, 11, 27]], np.float64)[:cams] + offset
+        quats = quat_normalize(quat_boxplus(down.expand(cams, 4), torch.as_tensor(rng.normal(scale=0.05, size=(cams, 3)))))
+        points = np.column_stack([5.0 + gx.ravel(), 5.0 + gy.ravel(), ((gx + gy) % 2).ravel() - 10.0]) + offset
+        pixels = torch.stack([image_from_3d_world(torch.as_tensor(points), model, torch.as_tensor(positions[c]), quats[c])
+                              for c in range(cams)])  # [cams, n_pts, 2]
+        start = quat_normalize(quat_boxplus(quats, torch.as_tensor(rng.normal(scale=0.02, size=(cams, 3)))))
+        params = RelaxParams.create(
+            floats(start.numpy()), floats(positions), points=floats(points + rng.normal(scale=0.05, size=points.shape)),
+            focal=floats([focal * 1.02]), principal=floats([[400.0, 300.0]]), dtype=dtype,
+        )
+        blk = B.pixel_error_block(
+            layout, ids(np.repeat(np.arange(cams), n_pts)), ids(np.tile(np.arange(n_pts), cams)),
+            ids(np.zeros(cams * n_pts)), floats(pixels.reshape(-1, 2).numpy()), floats(np.ones(cams * n_pts)),
+        )
+        builts.append(PB.BuiltProblem(
+            params=params, layout=layout, blocks=[blk],
+            free_mask=layout.build_free_mask(points_free=True, focal_free=True, device=device),
+            surface_free_mask=torch.zeros(layout.dim, dtype=torch.bool, device=device), cam_index={},
+            model_index={7: 0}, mesh=None, inverse_models=False, track_points=np.zeros((0, 3)),
+            track_errors=np.zeros(0),
+        ))
+    return builts
+
+
+def _shared_solve(device, dtype):
+    from opencalibration_tpu_torch.parallel import group_solver as GS
+
+    batch = GS.build_group_batch(_points_groups(device, dtype), shared_intrinsics=True)
+    solved, info = GS.solve_group_batch_shared(batch, pre_solve=False, max_iterations=40)
+    return batch, solved, info
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+def test_shared_solver_recovers_the_focal_on_the_cpu(dtype):
+    """The joint solver over three groups on the CPU, in float64 and in the
+    card's float32: the shared focal comes back from 612 to the true 600 px
+    within 0.5 px, the same in every group, in the dtype and on the device
+    the problem was given in."""
+    batch, solved, info = _shared_solve("cpu", dtype)
+    assert batch.layout.M == 1 and batch.num_groups == 3
+    assert solved.focal.device.type == "cpu" and solved.focal.dtype == solved.quats.dtype == dtype
+    assert abs(float(solved.focal[0, 0]) - 600.0) < 0.5 and float(info.final_cost) < 1e-2 * float(info.initial_cost)
+    assert torch.equal(solved.focal[0], solved.focal[1]) and torch.equal(solved.focal[0], solved.focal[2])
+
+
+@pytest.mark.gpu
+def test_shared_solver_cuda_matches_cpu(cuda):
+    """The joint solver in float32 on the card against the CPU: on each
+    device every group's copy of the shared focal equal bit for bit; between
+    the devices the focal within 1e-3 relative and quaternions within 1e-3."""
+    _, gpu, gpu_info = _shared_solve(cuda, torch.float32)
+    _, cpu, cpu_info = _shared_solve("cpu", torch.float32)
+    assert gpu.focal.device.type == "cuda" and int(gpu_info.iterations) > 2 and int(cpu_info.iterations) > 2
+    for solved in (gpu, cpu):
+        assert torch.isfinite(solved.quats).all()
+        assert torch.equal(solved.focal[0], solved.focal[1]) and torch.equal(solved.focal[0], solved.focal[2])
+    f_gpu, f_cpu = float(gpu.focal[0, 0]), float(cpu.focal[0, 0])
+    assert abs(f_gpu - 600.0) < 2.0 and abs(f_gpu / f_cpu - 1.0) < 1e-3
+    flip = torch.sign(torch.sum(gpu.quats.cpu() * cpu.quats, dim=-1, keepdim=True))
+    assert float((flip * gpu.quats.cpu() - cpu.quats).abs().max()) < 1e-3

@@ -145,17 +145,18 @@ def test_unreadable_path_is_skipped(survey, tmp_path):
 def test_later_states_raise_and_device_is_required():
     p = Pipeline(device="cpu")
     assert not p.resume_from_state(PipelineState.FINAL_GLOBAL_RELAX)  # no skipping ahead
+    # CAMERA_PARAMETER_RELAX is ported: on an empty pipeline its six passes run through
     p.reset_state(PipelineState.CAMERA_PARAMETER_RELAX)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, B3"):
-        p.iterate_once()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.run_to_completion()
-    p.skip_camera_param_relax = True
     p.skip_final_global_relax = True
-    assert p.iterate_once() == PipelineState.FINAL_GLOBAL_RELAX
+    after = [p.iterate_once() for _ in range(6)]
+    assert after == [PipelineState.CAMERA_PARAMETER_RELAX] * 5 + [PipelineState.FINAL_GLOBAL_RELAX]
     assert p.iterate_once() == PipelineState.GENERATE_THUMBNAIL
     with pytest.raises(NotImplementedError, match="Slice C"):
         p.run_to_completion()
+    # and it is passed at once when skipped
+    p.reset_state(PipelineState.CAMERA_PARAMETER_RELAX)
+    p.skip_camera_param_relax = True
+    assert p.iterate_once() == PipelineState.FINAL_GLOBAL_RELAX
     assert p.resume_from_state(PipelineState.INITIAL_PROCESSING)
     with pytest.raises(ValueError):
         Pipeline(device=None)
@@ -177,35 +178,40 @@ def test_default_device_is_the_card(monkeypatch):
 def test_initial_processing_without_jax(tmp_path):
     """In a process where ``import jax`` and ``import opencalibration_tpu``
     (the JAX package) fail, the port runs a 2 x 2 survey from
-    INITIAL_PROCESSING through FINAL_GLOBAL_RELAX (camera parameters skipped)
-    and no module of either is loaded."""
+    INITIAL_PROCESSING through CAMERA_PARAMETER_RELAX (intrinsics free) and
+    FINAL_GLOBAL_RELAX, saves a checkpoint, loads it into a fresh pipeline
+    with an equal graph, and no module of either is loaded."""
     code = textwrap.dedent(f"""
-        import sys
+        import os, sys
         sys.modules["jax"] = None  # any import of jax raises
         sys.modules["opencalibration_tpu"] = None  # and of the JAX package (not the port's prefix)
         from opencalibration_tpu_torch.testing import survey
         from opencalibration_tpu_torch.pipeline.pipeline import Pipeline
-        paths, _, _ = survey.write_survey({str(tmp_path)!r}, 2, 2, device="cpu")
+        paths, _, _ = survey.write_survey({str(tmp_path)!r}, 2, 2, focal_px_tag=420.0, device="cpu")
         p = Pipeline(batch_size=4, device="cpu")
-        p.skip_camera_param_relax = True
         p.add(paths)
         states = []
         while p.get_state() != "GENERATE_THUMBNAIL":
             states.append(p.get_state())
             p.iterate_once()
+        ck = os.path.join({str(tmp_path)!r}, "checkpoint")
+        assert p.save_checkpoint(ck)
+        q = Pipeline(device="cpu")
+        assert q.load_checkpoint(ck) and q.graph == p.graph and q.get_state() == p.get_state()
+        assert sorted(q.model_store) == sorted(p.model_store) and len(q.surfaces) == len(p.surfaces)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu") and sys.modules[m])
-        assert any(m.startswith("opencalibration_tpu_torch.") for m in sys.modules)
+        assert any(m.startswith("opencalibration_tpu_torch.io.") for m in sys.modules)
         print(p.get_state(), p.graph.size_nodes(), p.graph.size_edges(), len(p.surfaces),
-              ",".join(sorted(set(states))), loaded)
+              states.count("CAMERA_PARAMETER_RELAX"), ",".join(sorted(set(states))), loaded)
     """)
     env = dict(os.environ)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in this process (tests/torch_threads.py)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900,
                        cwd=root, env=env)
     assert r.returncode == 0, r.stdout + r.stderr
-    state, nodes, edges, surfaces, states, loaded = r.stdout.split(maxsplit=5)
+    state, nodes, edges, surfaces, cpr_passes, states, loaded = r.stdout.split(maxsplit=6)
     assert (state, nodes, surfaces, loaded.strip()) == ("GENERATE_THUMBNAIL", "4", "1", "[]")
-    assert states == ",".join(sorted(PipelineState.ORDER[:5]))
+    assert states == ",".join(sorted(PipelineState.ORDER[:5])) and cpr_passes == "6"
     assert int(edges) >= 4
