@@ -32,7 +32,8 @@ Phases, each printing its lines:
    stage counters, nodes / edges / groups, LM iterations, peak memory, kernel
    launches, the kernel against its plain version on one link chunk, and the
    orientation error against the scene's ground truth;
-8. a 12-image survey (3 x 4, same image size) rendered over terrain with
+8. a 9-image survey (3 x 3 at 320 x 240; the full image size over this
+   relief is phase 9's) rendered over terrain with
    8 m of sinusoidal relief (70 m wavelength), driven from
    INITIAL_PROCESSING through
    MESH_REFINEMENT, INITIAL_GLOBAL_RELAX (skipped by default),
@@ -46,8 +47,10 @@ Phases, each printing its lines:
    against the relief; then the last full problem solved with the dense and
    the matrix-free linear solvers on the card (their difference and time per
    LM iteration), and the matrix-free solve run twice, bit for bit;
-9. the whole calibration at full size: the 24-image survey over the same
-   relief, its geotags' focal length 5 % above the true 2000 px, from
+9. the whole pipeline at full size, the main path: the 24-image survey over
+   the same relief, written in colour (binary PPM) with a seeded +-10 %
+   exposure gain per image, its geotags' focal length 5 % above the true
+   2000 px, from
    ``add(paths)`` with the pipeline's defaults through INITIAL_PROCESSING,
    MESH_REFINEMENT, CAMERA_PARAMETER_RELAX with the intrinsics free, the
    edge refit and FINAL_GLOBAL_RELAX to GENERATE_THUMBNAIL: seconds, passes,
@@ -58,21 +61,44 @@ Phases, each printing its lines:
    mesh heights (bounded as in phase 8), a finite homography on every edge
    that kept inliers, one build and five refreshes in the state, one refit;
    then ``save_checkpoint``, ``load_checkpoint`` into a fresh pipeline, and
-   the two compared;
-10. the shared-intrinsics joint solver on the card against the CPU: a 3 x 3
-   relief survey at 320 x 240 is run on the card to the entry of
-   CAMERA_PARAMETER_RELAX, split into intrinsics groups of 3, and the
+   the two compared; then the same pipeline carries on through
+   GENERATE_THUMBNAIL, GENERATE_LAYERS, COLOR_BALANCE and BLEND_LAYERS to
+   COMPLETE with the reference's defaults (64 MP cap, tiles of 256, 3 x 3
+   taps, four blend levels) and every output path set: seconds per state,
+   the mosaic's size, GSD and tiles, the ``ortho: ...`` scope counters, the
+   correspondences, the balance's cost, image-cache hits and misses, device
+   uploads, peak memory. Checked: a Lab thumbnail of 58 x 43 on every node;
+   the three GeoTIFFs read back with their sizes, georeference and
+   overviews; coverage inside the camera footprint; the camera-id raster
+   (node ids only, 0 exactly where nothing is covered, each camera or a grid
+   neighbour under its own nadir); the DSM against the relief; the
+   orthomosaic's L against the scene's own texture resampled at its
+   georeference (the error averaged over 3 m boxes, which takes out the few
+   pixels by which calibrated poses miss the scene); a second job at 2 MP blended with and without the colour
+   balance (the balance must lower the error: the exposure gains are
+   flattened, not kept); ``solve_color_balance`` run twice on the card, bit
+   for bit;
+10. the shared-intrinsics joint solver on the card against the CPU: the
+   state in which phase 8 reached CAMERA_PARAMETER_RELAX (kept aside there;
+   the refined mesh, the orientations of MESH_REFINEMENT) is split into
+   intrinsics groups of 3 with the focal free, and the
    stacked batch solved by ``solve_group_batch_shared`` in float32 on both
    devices: every group's copy of the shared tail equal bit for bit on
    each device, focal and orientations of the two devices within the
-   stated bounds, iterations printed.
+   stated bounds, iterations printed;
+11. the ortho tail on the card against the CPU from one ground-truth state
+   (a 2 x 3 colour survey at 320 x 240, ``testing/ortho_cases.py``): the
+   same correspondences, balance parameters, RGBA bytes and camera ids
+   within the stated tolerances.
 
 The ``kernels`` line gives each kernel's launches on the main path, phase 9
-(INITIAL_PROCESSING through FINAL_GLOBAL_RELAX with the camera parameters),
+(INITIAL_PROCESSING through the camera parameters and the ortho tail to
+COMPLETE),
 and on the paths of phases 8, 7 and 5, each taken with the counter set to 0
 just before the path and read just after it, and phase 3's times and bounds
 (``*_link`` at the link's shape). Run from the repository root with
-``python3 chip_smoke.py``. Any
+``python3 chip_smoke.py`` (``--phases 2,9`` runs a subset and prints neither
+the ``kernels`` nor the ``ok`` line). Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
 exits with 1 before doing anything. The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -104,7 +130,11 @@ from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.relax import lm as LM
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
+from opencalibration_tpu_torch.io import geotiff
+from opencalibration_tpu_torch.ortho.color_balance import solve_color_balance
+from opencalibration_tpu_torch.ortho.ortho import OrthoJob
 from opencalibration_tpu_torch.testing import hamming_cases as HC
+from opencalibration_tpu_torch.testing import ortho_cases
 from opencalibration_tpu_torch.testing import survey as S
 from opencalibration_tpu_torch.utils import performance
 
@@ -115,7 +145,7 @@ SMALL = dict(rows=2, cols=3, width=320, height=240, focal=400.0, texture=512,
 FULL = dict(rows=4, cols=6, width=1600, height=1200, focal=2000.0, texture=2560,
             max_features=2048)
 # phase 8's smaller survey: the same images, half as many
-MESH = dict(FULL, rows=3, cols=4)
+MESH = dict(SMALL, rows=3, cols=3)
 SPACING = 12.0
 NUM_HYPOTHESES = 2048
 MAX_ITERATIONS = 50
@@ -138,7 +168,21 @@ FOCAL_TAG_FACTOR, FOCAL_REL_BOUND = 1.05, 0.03
 # a checkpoint stores mesh vertices with 10 significant digits and cloud
 # points with 6 decimals; the graph and the camera models come back exactly
 CHECKPOINT_VERTEX_REL, CHECKPOINT_CLOUD_M = 1e-9, 6e-7
-# the shared solver in float32, CUDA against CPU, on the 3 x 3 survey
+# the ortho tail at full size. Covered share of the raster inside the
+# bounding box of the camera positions; median absolute L error (levels of
+# 255) of the orthomosaic against the scene's own texture inside that box
+# plus a margin, the signed error averaged over boxes of ORTHO_SMOOTH_M first:
+# the calibrated poses are a few tenths of a degree from the truth, a few
+# pixels on the ground, which on this texture (blobs of 0.3 m) costs more
+# levels than the exposure does. The +-10 % gains on the gamma-encoded values
+# are up to +-13 levels at mid gray. On the 2 x 3 scene at 320 x 240 over the
+# same texture, poses 0.2 degrees off, the CPU reads 5.3 with the balance and
+# 8.1 without it at 3 m (14 and 15 unsmoothed)
+ORTHO_COVERED_SHARE, ORTHO_MEDIAN_L, ORTHO_MARGIN_M, ORTHO_SMOOTH_M = 0.98, 7.0, 15.0, 3.0
+GAIN_SPREAD = 0.1
+BALANCE_CHECK_MEGAPIXELS = 2.0
+THUMBNAIL_HW = (43, 58)  # of a 1600 x 1200 image
+# the shared solver in float32, CUDA against CPU, on the 3 x 3 relief survey
 SHARED_GROUP_SIZE, SHARED_MAX_ITERATIONS = 3, 50
 SHARED_FOCAL_REL, SHARED_DEG = 5e-3, 0.1
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
@@ -486,10 +530,11 @@ def phase_pipeline_cuda_vs_cpu():
     return launches
 
 
-def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=None):
+def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=None, color=False):
     """INITIAL_PROCESSING at full image size (``cfg``, default FULL) over
     terrain with ``relief_m`` of relief, the geotags carrying
-    ``focal_px_tag`` (default: the true focal). Returns the pipeline, the
+    ``focal_px_tag`` (default: the true focal); ``color`` writes PPM files
+    with a seeded exposure gain per image. Returns the pipeline, the
     survey's paths, positions and orientations, and the state's kernel
     launches."""
     cfg = cfg or FULL
@@ -497,9 +542,11 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
     paths, positions, quats_gt = S.write_survey(
         directory, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
         focal=cfg["focal"], focal_px_tag=focal_px_tag, texture=cfg["texture"], relief_amplitude=relief_m,
-        relief_wavelength=RELIEF_WAVELENGTH_M, device="cuda",
+        relief_wavelength=RELIEF_WAVELENGTH_M, color=color,
+        gains=S.survey_gains(cfg["rows"] * cfg["cols"], spread=GAIN_SPREAD) if color else None, device="cuda",
     )
-    print(f"[{label}] wrote {len(paths)} PGM images at {cfg['width']}x{cfg['height']} "
+    kind = "PPM (colour, exposure gains)" if color else "PGM"
+    print(f"[{label}] wrote {len(paths)} {kind} images at {cfg['width']}x{cfg['height']} "
           f"(relief {relief_m} m, focal tag {focal_px_tag or cfg['focal']}) in {time.perf_counter() - t0:.2f} s")
     p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
     groups = []
@@ -611,7 +658,9 @@ def _solve_ms_per_iteration(built, linear_solver):
 def phase_mesh_refinement(directory):
     """The relief survey from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX;
     returns the kernel launches of the whole run (the link check between the
-    two parts launches the kernel too and is not counted)."""
+    two parts launches the kernel too and is not counted) and the state at
+    the entry of CAMERA_PARAMETER_RELAX (graph, GPS index, camera models,
+    surfaces), which the shared solver's phase starts from."""
     p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip", cfg=MESH)
     _orientation_error(p, paths, quats_gt, "mesh-ip", bounded=False)
     p.skip_camera_param_relax = True
@@ -620,10 +669,13 @@ def phase_mesh_refinement(directory):
     torch.cuda.reset_peak_memory_stats()
     hamming_cuda.hamming_top2.launches = 0
     steps = []
+    entry = None
     try:
         with _SolveRecorder() as rec:
             while p.get_state() != PipelineState.GENERATE_THUMBNAIL:
                 state = p.get_state()
+                if state == PipelineState.CAMERA_PARAMETER_RELAX and entry is None:
+                    entry = (copy.deepcopy(p.graph), p.gps_positions, dict(p.model_store), copy.deepcopy(p.surfaces))
                 n_solves = len(rec.solves)
                 t0 = time.perf_counter()
                 p.iterate_once()
@@ -697,7 +749,7 @@ def phase_mesh_refinement(directory):
         raise AssertionError("two CG solves of the same problem differ")
     if not (np.isfinite(ang).all() and ang.max() <= CG_VS_CHOLESKY_DEG and dz <= CG_VS_CHOLESKY_M):
         raise AssertionError("the CG and Cholesky solves disagree")
-    return launches
+    return launches, entry
 
 
 class _BuildRecorder:
@@ -770,12 +822,12 @@ def _assert_same_after_checkpoint(p, q):
 
 
 def phase_camera_relax(directory):
-    """The whole calibration at full size, from images with a 5 % wrong focal
-    tag to a saved and loaded checkpoint; returns the kernel launches from
-    INITIAL_PROCESSING through FINAL_GLOBAL_RELAX."""
+    """The whole pipeline at full size, from colour images with a 5 % wrong
+    focal tag through a saved and loaded checkpoint to COMPLETE; returns the
+    kernel launches from INITIAL_PROCESSING to COMPLETE."""
     true_focal = FULL["focal"]
     p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(
-        directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal)
+        directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal, color=True)
     tag = float(p.model_store[1].focal_length_pixels)
     if len(p.model_store) != 1 or abs(tag / true_focal - FOCAL_TAG_FACTOR) > 1e-6 or p.skip_camera_param_relax:
         raise AssertionError(f"the survey's camera model is not the one wrong tag: {p.model_store}")
@@ -880,7 +932,249 @@ def phase_camera_relax(directory):
     print(f"[calib] checkpoint {files} ({size / 2**20:.2f} MiB): saved in {saved_s:.3f} s, loaded in {loaded_s:.3f} s; "
           f"state {q.get_state()}, graph, camera models and GPS index equal; mesh vertices within {worst_v:.2e} "
           f"(relative, bound {CHECKPOINT_VERTEX_REL}), clouds within {worst_c:.2e} m (bound {CHECKPOINT_CLOUD_M})")
+    return launches + phase_ortho_tail(p, paths, positions, directory)
+
+
+KEEP_GOING = False  # --keep-going: the ortho tail's checks report and go on, and the run fails at its end
+FAILURES = []
+
+
+def _fail(message):
+    if not KEEP_GOING:
+        raise AssertionError(message)
+    print(f"[FAILED] {message}")
+    FAILURES.append(message)
+
+
+def _footprint_window(origin, px, shape_hw, lo_xy, hi_xy):
+    """(row0, row1, col0, col1) of the raster over the world box lo..hi."""
+    c0, c1 = int((lo_xy[0] - origin[0]) / px[0]), int((hi_xy[0] - origin[0]) / px[0]) + 1
+    r0, r1 = int((origin[1] - hi_xy[1]) / px[1]), int((origin[1] - lo_xy[1]) / px[1]) + 1
+    return max(r0, 0), min(r1, shape_hw[0]), max(c0, 0), min(c1, shape_hw[1])
+
+
+def phase_ortho_tail(p, paths, positions, directory):
+    """GENERATE_THUMBNAIL to COMPLETE on the calibrated pipeline ``p`` with
+    every output path set; returns the Hamming kernel's launches in it."""
+    out = os.path.join(directory, "ortho_out")
+    os.makedirs(out)
+    p.ortho_path, p.dsm_path = os.path.join(out, "ortho.tif"), os.path.join(out, "dsm.tif")
+    p.camera_id_path, p.thumbnail_path = os.path.join(out, "camera_ids.tif"), os.path.join(out, "thumbnail.png")
+    p.textured_obj_prefix = os.path.join(out, "model")
+    tiles = []
+    p.step_callback = lambda info: tiles.append(info.tile_update) if info.tile_update else None
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
+    torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.hamming_top2.launches = 0
+    seconds, last = {}, None
+    try:
+        for _ in range(12):
+            state = p.get_state()
+            t0 = time.perf_counter()
+            last = p.iterate_once()
+            _sync()
+            seconds[state] = time.perf_counter() - t0
+            if last == "DONE":
+                break
+    finally:
+        performance.enable_performance_counters(False)
+        p.step_callback = None
+    launches = hamming_cuda.hamming_top2.launches
+    peak = torch.cuda.max_memory_allocated()
+    if last != "DONE" or p.get_state() != PipelineState.COMPLETE:
+        _fail(f"the pipeline did not reach COMPLETE: state {p.get_state()}, last return {last}")
+    job = p._ortho_job
+    print("[ortho] seconds per state: " + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.4f} s")
+    print(f"[ortho] mosaic {job._width} x {job._height} px ({job._width * job._height / 1e6:.3f} MP), GSD "
+          f"{job._gsd:.5f} m, {job._tiles_x} x {job._tiles_y} = {len(job._order)} tiles of {job.tile_size}, "
+          f"{job._kc} candidate cameras a tile, taps {job.taps}, blend levels {job.blend_levels}; thumbnail mosaic "
+          f"{p.thumbnail_mosaic.rgba.shape[1]} x {p.thumbnail_mosaic.rgba.shape[0]} px at {p.thumbnail_mosaic.gsd:.4f} m")
+    print("[ortho] stage counters (host clock; seconds):")
+    for line in performance.total_performance_summary().splitlines():
+        print(f"[ortho]   {line}")
+    print(f"[ortho] {len(job.correspondences)} correspondences, balance cost {job.balance.final_cost:.6g} "
+          f"(success {job.balance.success}); image cache {job._cache.hits} hits / {job._cache.misses} misses, "
+          f"{job.device_uploads} device uploads; {len(tiles)} tile updates; peak memory allocated "
+          f"{peak / 2**30:.3f} GiB; Hamming kernel launches {launches}")
+
+    # where a tile's time goes: the host's mesh interpolation, the render on
+    # the card (dispatch to a synchronised end) and the pull of the layers,
+    # for a tile under the cameras and for an empty corner tile
+    from opencalibration_tpu_torch.ortho.ortho import _raster_grid
+
+    for label, (tx, ty) in (("central", (job._tiles_x // 2, job._tiles_y // 2)), ("corner", (0, 0))):
+        ts = job.tile_size
+        _sync()
+        t0 = time.perf_counter()
+        job._ctx.mesh.interpolate_z(_raster_grid(job._bounds, job._gsd, tx * ts, ty * ts, ts, ts))
+        t1 = time.perf_counter()
+        disp = job._project_tile_dispatch(tx, ty)
+        t2 = time.perf_counter()
+        _sync()
+        t3 = time.perf_counter()
+        job._project_tile_finish(disp)
+        t4 = time.perf_counter()
+        print(f"[ortho] one {label} tile ({tx}, {ty}): interpolate_z on the host {t1 - t0:.4f} s; dispatch (with "
+              f"its own interpolate_z) {t2 - t1:.4f} s, the card done {t3 - t2:.4f} s later; pull of the layers "
+              f"{t4 - t3:.4f} s")
+
+    # thumbnails
+    shapes = {tuple(n.payload.thumbnail.shape) for _, n in p.graph.nodes() if n.payload.thumbnail is not None}
+    if shapes != {THUMBNAIL_HW + (3,)} or any(n.payload.thumbnail is None for _, n in p.graph.nodes()):
+        _fail(f"thumbnails are not all {THUMBNAIL_HW}: {shapes}")
+    if not job.balance.success or len(job.correspondences) < 1000:
+        _fail("the colour balance had too little to work with")
+    if len(tiles) != len(job._order) or job._cache.misses != len(paths) or job.device_uploads != len(paths):
+        _fail(f"tiles reported {len(tiles)} of {len(job._order)}; {job._cache.misses} decodes and "
+                             f"{job.device_uploads} uploads for {len(paths)} images")
+
+    # the files, read back
+    t0 = time.perf_counter()
+    ortho = geotiff.read_geotiff(p.ortho_path)
+    img, origin, px, wkt = ortho
+    cam = geotiff.read_geotiff(p.camera_id_path)
+    dsm, dsm_origin, dsm_px, _ = geotiff.read_geotiff(p.dsm_path)
+    dsm = dsm.reshape(dsm.shape[:2])
+    levels = {k: geotiff.read_geotiff_overviews(v) for k, v in
+              (("ortho", p.ortho_path), ("dsm", p.dsm_path), ("camera ids", p.camera_id_path))}
+    print(f"[ortho] read back in {time.perf_counter() - t0:.2f} s: ortho {img.shape} {img.dtype}, origin "
+          f"({origin[0]:.3f}, {origin[1]:.3f}), pixel {px[0]:.5f} m, levels {levels['ortho']}; camera ids "
+          f"{cam[0].shape} {cam[0].dtype}, levels {levels['camera ids']}; DSM {dsm.shape} {dsm.dtype}, pixel "
+          f"{dsm_px[0]:.5f} m, levels {levels['dsm']}; WKT {'present' if wkt else 'absent'}")
+    b = job._bounds
+    if (img.shape != (job._height, job._width, 4) or img.dtype != np.uint8
+            or img.shape[0] * img.shape[1] > p.ortho_max_megapixels * 1e6
+            or abs(origin[0] - b.min_x) > 1e-6 or abs(origin[1] - b.max_y) > 1e-6
+            or abs(px[0] - job._gsd) > 1e-9 or abs(px[1] - job._gsd) > 1e-9 or not wkt
+            or len(levels["ortho"]) != 4 or levels["ortho"][0] != img.shape[:2]):
+        _fail("the orthomosaic GeoTIFF does not read back as written")
+    ids = cam[0].reshape(cam[0].shape[:2])
+    if ids.dtype != np.uint64 or ids.shape != img.shape[:2] or cam[1] != origin or cam[2] != px:
+        _fail("the camera-id GeoTIFF does not match the orthomosaic's raster")
+    if (dsm.dtype != np.float32 or dsm.ndim != 2 or len(levels["dsm"]) != 4
+            or abs(dsm_origin[0] - b.min_x) > 1e-6 or abs(dsm_origin[1] - b.max_y) > 1e-6):
+        _fail("the DSM GeoTIFF does not read back as written")
+    for name in ("thumbnail.png", "model.obj", "model.mtl", "model.png"):
+        if os.path.getsize(os.path.join(out, name)) == 0:
+            _fail(f"{name} is empty")
+
+    # the local frame starts at the first camera: its offset to the survey's frame
+    nodes = _by_path(p)
+    offset = positions[0] - np.asarray(nodes[paths[0]].position)
+    cam_local = np.stack([np.asarray(nodes[path].position) for path in paths])
+    lo, hi = cam_local[:, :2].min(0), cam_local[:, :2].max(0)
+
+    # coverage and camera ids
+    r0, r1, c0, c1 = _footprint_window(origin, px, img.shape[:2], lo, hi)
+    covered = img[..., 3] == 255
+    share = float(covered[r0:r1, c0:c1].mean())
+    id_of = {n.payload.path: nid for nid, n in p.graph.nodes()}
+    seen = set(np.unique(ids[r0:r1, c0:c1]).tolist()) | set(np.unique(ids[::7, ::7]).tolist())
+    print(f"[ortho] covered inside the camera footprint ({r1 - r0} x {c1 - c0} px): {share:.5f} (bound "
+          f"{ORTHO_COVERED_SHARE}); covered overall {float(covered.mean()):.5f}; camera ids seen: {len(seen - {0})} "
+          f"of {len(paths)} cameras")
+    if share < ORTHO_COVERED_SHARE:
+        _fail(f"only {share:.4f} of the camera footprint is covered")
+    if not seen <= set(id_of.values()) | {0}:
+        _fail("the camera-id raster holds values that are no node id")
+    if (ids[~covered] != 0).any() or (ids[covered] == 0).any():
+        _fail("the camera-id raster is not 0 exactly where nothing is covered")
+    for i, path in enumerate(paths):
+        col, row = int((cam_local[i, 0] - origin[0]) / px[0]), int((origin[1] - cam_local[i, 1]) / px[1])
+        near = {id_of[q] for j, q in enumerate(paths)
+                if np.linalg.norm(positions[j, :2] - positions[i, :2]) <= 1.5 * SPACING}
+        if int(ids[row, col]) not in near:
+            _fail(f"under camera {i}'s nadir the raster names camera id {int(ids[row, col])}")
+
+    # the DSM against the relief, at the raster's own coordinates inside the footprint
+    dr0, dr1, dc0, dc1 = _footprint_window(dsm_origin, dsm_px, dsm.shape, lo, hi)
+    z = dsm[dr0:dr1, dc0:dc1]
+    gx, gy = np.meshgrid(dsm_origin[0] + dsm_px[0] * np.arange(dc0, dc1), dsm_origin[1] - dsm_px[1] * np.arange(dr0, dr1))
+    truth = S.relief_height(torch.as_tensor(np.stack([gx + offset[0], gy + offset[1]], -1)), RELIEF_M,
+                            RELIEF_WAVELENGTH_M).numpy()
+    valid = z != -32767.0
+    herr = np.abs(z + offset[2] - truth)[valid]
+    print(f"[ortho] DSM vs the relief at {int(valid.sum())} pixels inside the camera footprint ({float(valid.mean()):.4f} "
+          f"valid): median {np.median(herr):.4f} m, max {herr.max():.4f} m (bounds {HEIGHT_MEDIAN_M}, {HEIGHT_MAX_M})")
+    if valid.mean() < 0.99 or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
+        _fail("the DSM does not follow the relief")
+
+    # the orthomosaic against the scene's own texture
+    window = _footprint_window(origin, px, img.shape[:2], lo - ORTHO_MARGIN_M, hi + ORTHO_MARGIN_M)
+    t0 = time.perf_counter()
+    median_l, win_share = ortho_cases.median_l_error(ortho, positions, texture=FULL["texture"], offset_xy=offset[:2],
+                                                     window=window, smooth_m=ORTHO_SMOOTH_M)
+    print(f"[ortho] orthomosaic L against the scene's texture, window {window} ({win_share:.4f} covered): median "
+          f"|error| over {ORTHO_SMOOTH_M} m boxes {median_l:.3f} levels of 255 (bound {ORTHO_MEDIAN_L}; "
+          f"{time.perf_counter() - t0:.2f} s)")
+    if not median_l <= ORTHO_MEDIAN_L:
+        _fail(f"the orthomosaic is {median_l} L levels from the scene")
+    del ortho, img, ids, cam, dsm, covered
+
+    # the balance must flatten the exposure gains: one job at a lower cap,
+    # blended with its balance and with none
+    t0 = time.perf_counter()
+    check = OrthoJob(p.surfaces, p.graph, p.model_store, p.geocoord, max_megapixels=BALANCE_CHECK_MEGAPIXELS,
+                     device="cuda")
+    check.pass_layers()
+    check.solve_balance()
+    errs = {}
+    for name in ("balanced", "unbalanced"):
+        path = os.path.join(out, f"check_{name}.tif")
+        balance = check.balance
+        if name == "unbalanced":
+            check.balance = None
+        check.pass_blend(path)
+        check.balance = balance
+        back = geotiff.read_geotiff(path)
+        w = _footprint_window(back[1], back[2], back[0].shape[:2], lo - ORTHO_MARGIN_M, hi + ORTHO_MARGIN_M)
+        errs[name] = ortho_cases.median_l_error(back, positions, texture=FULL["texture"], offset_xy=offset[:2],
+                                                window=w, smooth_m=ORTHO_SMOOTH_M)[0]
+    print(f"[ortho] balance check at {BALANCE_CHECK_MEGAPIXELS} MP ({check._width} x {check._height} px, "
+          f"{len(check._order)} tiles, {len(check.correspondences)} correspondences, "
+          f"{time.perf_counter() - t0:.2f} s): median |L error| {errs['balanced']:.3f} with the colour balance, "
+          f"{errs['unbalanced']:.3f} without")
+    if not (errs["balanced"] < errs["unbalanced"] and errs["balanced"] <= ORTHO_MEDIAN_L):
+        _fail(f"the colour balance did not flatten the exposure gains: {errs}")
+
+    # the solve is reproducible to the bit on the card
+    cam_xy = {nid: np.asarray(n.payload.position[:2]) for nid, n in p.graph.nodes()}
+    t0 = time.perf_counter()
+    first = solve_color_balance(job.correspondences, cam_xy, device="cuda")
+    again = solve_color_balance(job.correspondences, cam_xy, device="cuda")
+    va, vb = ortho_cases.balance_vector(first), ortho_cases.balance_vector(again)
+    same = np.array_equal(va, vb) and first.final_cost == again.final_cost
+    same_as_job = np.array_equal(va, ortho_cases.balance_vector(job.balance))
+    print(f"[ortho] solve_color_balance twice on the card ({len(va)} parameters, {time.perf_counter() - t0:.2f} s): "
+          f"bit-identical {same}; equal to the pipeline's own solve {same_as_job}; largest |L offset| "
+          f"{max(abs(q.lab_offset[0]) for q in first.per_image_params.values()):.3f}")
+    if not (same and same_as_job):
+        _fail("two colour-balance solves of the same correspondences differ")
     return launches
+
+
+def phase_ortho_cuda_vs_cpu():
+    """The ortho tail from one ground-truth state on the card and on the CPU."""
+    with tempfile.TemporaryDirectory() as d:
+        state = ortho_cases.ground_truth_state(d)
+        t0 = time.perf_counter()
+        on_card = ortho_cases.run_ortho_tail(state, d, "cuda")
+        _sync()
+        t1 = time.perf_counter()
+        on_cpu = ortho_cases.run_ortho_tail(state, d, "cpu")
+        t2 = time.perf_counter()
+        got = ortho_cases.compare_ortho_tails(on_card, on_cpu)
+        median_l, share = ortho_cases.median_l_error(on_card["ortho_path"], state["positions"])
+    job = on_card["job"]
+    print(f"[ortho-cuda-vs-cpu] 2x3 at 320x240, {job._width} x {job._height} px in {len(job._order)} tiles of "
+          f"{job.tile_size}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; {got['correspondences']} correspondences, the "
+          f"same cameras on both; balance parameters within {got['balance_max_abs']:.2e} (bound "
+          f"{ortho_cases.BALANCE_ABS}); RGBA bytes equal {got['rgba_equal_share']:.5f} (bound "
+          f"{ortho_cases.RGBA_EQUAL_SHARE}), largest difference {got['rgba_max_levels']} (bound "
+          f"{ortho_cases.RGBA_MAX_LEVELS}); camera ids equal over the {got['covered_by_both']:.3f} covered by both; "
+          f"median |L error| against the scene {median_l:.3f} over {share:.3f} covered")
 
 
 def _shared_solve(graph, gps_positions, model_store, surfaces, device):
@@ -902,27 +1196,20 @@ def _shared_solve(graph, gps_positions, model_store, surfaces, device):
     return batch, GS.fetch_solved(solved), info, time.perf_counter() - t0
 
 
-def phase_shared_solver():
-    """The joint solver of several intrinsics groups, CUDA against CPU."""
-    with tempfile.TemporaryDirectory() as d:
-        paths, _, _ = S.write_survey(d, 3, 3, focal_px_tag=FOCAL_TAG_FACTOR * SMALL["focal"],
-                                     relief_amplitude=RELIEF_M, relief_wavelength=RELIEF_WAVELENGTH_M, device="cuda")
-        p = Pipeline(batch_size=9, device="cuda")
-        p.add(paths)
-        t0 = time.perf_counter()
-        while p.get_state() != PipelineState.CAMERA_PARAMETER_RELAX:
-            p.iterate_once()
-        _sync()
-    mesh = p.surfaces[0].mesh
-    print(f"[shared] 3x3 survey at 320x240 run to CAMERA_PARAMETER_RELAX in {time.perf_counter() - t0:.2f} s: "
-          f"{p.graph.size_nodes()} nodes, {p.graph.size_edges()} edges, mesh {mesh.num_vertices} vertices")
+def phase_shared_solver(entry):
+    """The joint solver of several intrinsics groups, CUDA against CPU, from
+    the state in which phase 8's relief survey entered CAMERA_PARAMETER_RELAX."""
+    graph, gps_positions, model_store, entry_surfaces = entry
+    print(f"[shared] the {MESH['rows']}x{MESH['cols']} relief survey at {MESH['width']}x{MESH['height']} at the entry "
+          f"of CAMERA_PARAMETER_RELAX (phase 8): {graph.size_nodes()} nodes, {graph.size_edges()} edges, mesh "
+          f"{entry_surfaces[0].mesh.num_vertices} vertices")
     group_size = ST.INTRINSICS_GROUP_SIZE
     ST.INTRINSICS_GROUP_SIZE = SHARED_GROUP_SIZE
     try:
         out = {}
         for device in ("cuda", "cpu"):
-            surfaces = copy.deepcopy(p.surfaces)
-            batch, solved, info, seconds = _shared_solve(p.graph, p.gps_positions, dict(p.model_store), surfaces, device)
+            surfaces = copy.deepcopy(entry_surfaces)
+            batch, solved, info, seconds = _shared_solve(graph, gps_positions, dict(model_store), surfaces, device)
             lay = batch.layout
             for name in ("mesh_z", "focal", "principal", "radial", "tangential"):
                 leaf = getattr(solved, name)
@@ -952,32 +1239,62 @@ def phase_shared_solver():
         raise AssertionError("the shared solver's CUDA and CPU results disagree")
 
 
-def main():
+def main(argv=()):
+    """With no arguments: every phase, then the ``kernels`` line and the
+    ``ok`` line. ``--phases 1,2,9`` runs those phases alone (1 and 2 always
+    run) and prints neither line; ``--keep-going`` lets the ortho tail's
+    checks report and go on, and fails at the end."""
+    global KEEP_GOING
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="")
+    ap.add_argument("--keep-going", action="store_true")
+    args = ap.parse_args(list(argv))
+    only = {int(x) for x in args.phases.split(",") if x}
+    KEEP_GOING = args.keep_going
+    want = lambda n: not only or n in only  # noqa: E731
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    kernel = phase_kernel(smi)
-    phase_cuda_vs_cpu()
-    step_launches = phase_full_size()
-    phase_pipeline_cuda_vs_cpu()
-    with tempfile.TemporaryDirectory() as d:
-        p, paths, _, quats_gt, ip_launches = phase_pipeline_full_size(d, 0.0, "pipeline")
-        _orientation_error(p, paths, quats_gt, "pipeline")
-    del p
-    with tempfile.TemporaryDirectory() as d:
-        mesh_launches = phase_mesh_refinement(d)
-    with tempfile.TemporaryDirectory() as d:
-        calib_launches = phase_camera_relax(d)
-    phase_shared_solver()
+    kernel = phase_kernel(smi) if want(3) else None
+    if want(4):
+        phase_cuda_vs_cpu()
+    step_launches = phase_full_size() if want(5) else None
+    if want(6):
+        phase_pipeline_cuda_vs_cpu()
+    ip_launches = mesh_launches = calib_launches = relief_entry = None
+    if want(7):
+        with tempfile.TemporaryDirectory() as d:
+            p, paths, _, quats_gt, ip_launches = phase_pipeline_full_size(d, 0.0, "pipeline")
+            _orientation_error(p, paths, quats_gt, "pipeline")
+        del p
+    if want(8) or want(10):  # phase 10 starts from a state of phase 8
+        with tempfile.TemporaryDirectory() as d:
+            mesh_launches, relief_entry = phase_mesh_refinement(d)
+    if want(9):
+        with tempfile.TemporaryDirectory() as d:
+            calib_launches = phase_camera_relax(d)
+    if want(10):
+        phase_shared_solver(relief_entry)
+    if want(11):
+        phase_ortho_cuda_vs_cpu()
     _assert_standalone("end")
+    print(f"[end] {time.perf_counter() - t_start:.1f} s")
+    if FAILURES:
+        raise AssertionError(f"{len(FAILURES)} checks failed: {FAILURES}")
+    if only:
+        print(f"partial run (phases {sorted(only | {1, 2})}): no kernels line, no ok line")
+        return 0
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
         launches=calib_launches,
-        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX with CAMERA_PARAMETER_RELAX, 24 images, relief":
-               calib_launches,
-               "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 12 images, relief": mesh_launches,
+        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX with CAMERA_PARAMETER_RELAX, 24 images, relief, "
+               "... to COMPLETE": calib_launches,
+               "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 9 images at 320x240, relief": mesh_launches,
                "pipeline INITIAL_PROCESSING, flat": ip_launches, "calibration_step": step_launches},
         **kernel,
     )]}))
@@ -986,4 +1303,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

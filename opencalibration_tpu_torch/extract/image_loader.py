@@ -10,9 +10,13 @@ Decoding, on the host:
 * Every other format (JPEG) goes to ``cv2``, imported when needed. Without
   cv2 that raises ``ImportError``: ``None`` means an unreadable file, which
   the load stage skips, and a missing decoder is not one.
-* Images longer than 1600 px are downscaled with cv2's ``INTER_AREA``, as
-  the reference does; without cv2 they raise.
-* The Lab thumbnail is not made (``node.thumbnail`` stays ``None``).
+* Images longer than 1600 px are downscaled with ``ops.color.resize_area``
+  (OpenCV's ``INTER_AREA`` reproduced), as the reference does.
+* Every node gets the reference's Lab thumbnail: the colour image through
+  ``ops.color.bgr_to_lab_u8``, area-resized to about 50 px on its geometric
+  mean side.
+* ``decode_color`` gives the BGR image alone, for the orthomosaic's
+  full-resolution image cache.
 
 ``pad_gray_batch``, ``camera_model_kwargs`` and ``DecodedImage`` are copies
 of the JAX package's numpy code. ``batch_sparse_masks`` runs the radius NMS on the
@@ -34,11 +38,13 @@ import torch
 from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.extract.camera_database import CameraDatabase, apply_database_entry
 from opencalibration_tpu_torch.extract.metadata import extract_metadata
+from opencalibration_tpu_torch.ops.color import bgr_to_lab_u8, resize_area
 from opencalibration_tpu_torch.ops.spatial import nms_radius
 from opencalibration_tpu_torch.types.graph import FeatureSet, ImageMetadata, ImageNode
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
 
 MAX_LENGTH_PIXELS = 1600  # reference extract_features.cpp:14
+THUMBNAIL_TARGET = 50.0  # reference extract_image.cpp:42-52
 NMS_PIXEL_RADIUS = 8.0  # reference extract_features.cpp:15
 
 
@@ -127,9 +133,9 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
     return ((y + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT).astype(np.uint8)
 
 
-def decode_netpbm(data: bytes) -> Optional[np.ndarray]:
-    """Binary 8-bit PGM / PPM bytes -> [H, W] uint8 gray; None if the file is
-    malformed or truncated."""
+def _netpbm_raster(data: bytes) -> Optional[np.ndarray]:
+    """Binary 8-bit PGM / PPM bytes -> [H, W] gray or [H, W, 3] RGB uint8 (a
+    view of ``data``); None if the file is malformed or truncated."""
     m = _NETPBM_HEADER.match(data)
     if m is None:
         return None
@@ -141,38 +147,69 @@ def decode_netpbm(data: bytes) -> Optional[np.ndarray]:
     if w == 0 or h == 0 or len(data) - m.end() < count:
         return None
     raster = np.frombuffer(data, np.uint8, count=count, offset=m.end())
-    if channels == 1:
-        return raster.reshape(h, w).copy()
-    return rgb_to_gray(raster.reshape(h, w, 3))
+    return raster.reshape(h, w) if channels == 1 else raster.reshape(h, w, 3)
 
 
-def _decode(path: str) -> Optional[np.ndarray]:
+def decode_netpbm(data: bytes) -> Optional[np.ndarray]:
+    """Binary 8-bit PGM / PPM bytes -> [H, W] uint8 gray; None if the file is
+    malformed or truncated."""
+    raster = _netpbm_raster(data)
+    if raster is None:
+        return None
+    return raster.copy() if raster.ndim == 2 else rgb_to_gray(raster)
+
+
+def _decode(path: str):
+    """(gray, BGR) of an image file, or None for an unreadable one."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         return None
     if data[:2] in NETPBM_MAGIC:
-        return decode_netpbm(data)
+        raster = _netpbm_raster(data)
+        if raster is None:
+            return None
+        if raster.ndim == 2:  # gray, replicated as cv2.imread(IMREAD_COLOR) does
+            return raster.copy(), np.repeat(raster[..., None], 3, axis=2)
+        return rgb_to_gray(raster), np.ascontiguousarray(raster[..., ::-1])
     cv2 = _cv2()
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None or img.size == 0:
         return None
-    return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY), img
+
+
+def decode_color(path: str) -> Optional[np.ndarray]:
+    """[H, W, 3] uint8 BGR of an image file (PPM / PGM by numpy, every other
+    format through cv2), or None for an unreadable one."""
+    decoded = _decode(path)
+    return None if decoded is None else decoded[1]
+
+
+def lab_thumbnail(bgr: np.ndarray) -> np.ndarray:
+    """The node's Lab thumbnail: about ``THUMBNAIL_TARGET`` px on the
+    geometric mean of its sides (reference extract_image.cpp:42-52)."""
+    h, w = bgr.shape[:2]
+    tscale = THUMBNAIL_TARGET / math.sqrt(h * w)
+    tw = max(1, int(round(w * tscale)))
+    th = max(1, int(round(h * tscale)))
+    return resize_area(bgr_to_lab_u8(bgr), (tw, th))
 
 
 def load_and_decode(path: str) -> Optional[DecodedImage]:
-    """Decode to gray, downscale to <= 1600 px, read metadata. Returns None
-    for unreadable files (the load stage skips them)."""
-    gray = _decode(path)
-    if gray is None or gray.size == 0:
+    """Decode, thumbnail, downscale the gray to <= 1600 px, read metadata.
+    Returns None for unreadable files (the load stage skips them)."""
+    decoded = _decode(path)
+    if decoded is None or decoded[0].size == 0:
         return None
+    gray, bgr = decoded
     node = ImageNode(path=path)
+    node.thumbnail = lab_thumbnail(bgr)
     h, w = gray.shape
     scale = min(1.0, MAX_LENGTH_PIXELS / max(h, w))
     if scale < 1.0:
-        cv2 = _cv2()
-        gray = cv2.resize(gray, (int(w * scale), int(h * scale)), interpolation=cv2.INTER_AREA)
+        gray = resize_area(gray, (int(w * scale), int(h * scale)))
     node.metadata = extract_metadata(path)
     if node.metadata.width_px == 0:
         node.metadata.width_px = w

@@ -13,7 +13,10 @@ The host containers (measurement graph, its node and edge payloads, node
 poses, surface models and meshes) are read by attribute and rebuilt, with
 copied arrays, from a ``types.graph`` module and a mesh class: the port's own
 by default, the JAX package's when a test passes them in to go back. A camera
-model store and a relax option set cross the same way.
+model store and a relax option set cross the same way, and so do the
+orthomosaic's containers: a thumbnail ``OrthoMosaic``, a list of
+``ColorCorrespondence`` and a ``ColorBalanceResult``. Nodes carry their Lab
+thumbnails.
 """
 
 from __future__ import annotations
@@ -157,3 +160,32 @@ def surface_from(surface, types=_graph, mesh_cls=_mesh.TriMesh):
     """A ``SurfaceModel`` (point clouds and mesh) -> ``types.SurfaceModel``."""
     mesh = None if surface.mesh is None else mesh_from(surface.mesh, mesh_cls)
     return types.SurfaceModel(cloud=[np.array(c) for c in surface.cloud], mesh=mesh)
+
+
+def ortho_mosaic_from(mosaic, cls=None):
+    """An ``OrthoMosaic`` -> ``cls`` (the port's by default), arrays copied."""
+    if cls is None:
+        from opencalibration_tpu_torch.ortho.ortho import OrthoMosaic as cls
+    return _rebuild(mosaic, cls)
+
+
+def color_correspondences_from(correspondences, cls=None) -> list:
+    """A list of ``ColorCorrespondence`` -> a list of ``cls`` (the port's by
+    default)."""
+    if cls is None:
+        from opencalibration_tpu_torch.ortho.color_balance import ColorCorrespondence as cls
+    return [_rebuild(c, cls) for c in correspondences]
+
+
+def color_balance_from(result, module=None):
+    """A ``ColorBalanceResult`` -> ``module.ColorBalanceResult`` with
+    ``module.RadiometricParams`` per image (``module`` is the port's
+    ``ortho.color_balance`` by default)."""
+    if module is None:
+        from opencalibration_tpu_torch.ortho import color_balance as module
+    return module.ColorBalanceResult(
+        per_image_params={k: _rebuild(v, module.RadiometricParams) for k, v in result.per_image_params.items()},
+        per_model_vignetting={k: np.array(v) for k, v in result.per_model_vignetting.items()},
+        success=result.success,
+        final_cost=result.final_cost,
+    )

@@ -3,9 +3,9 @@ opencalibration_tpu/io/serialize.py).
 
 The document is the one the JAX package writes (same keys, same array
 encoding), so each package reads the other's file. Camera models are read as
-float64 models on the host. Thumbnails are PNGs and need ``cv2``: a node
-without a thumbnail serialises as null, and a thumbnail without ``cv2``
-raises ``ImportError``.
+float64 models on the host. Thumbnails are PNGs written and read by
+``io/png.py`` (no OpenCV needed); a node without a thumbnail serialises as
+null.
 
 Covers the roles of reference src/io/serialize_MeasurementGraph.cpp /
 deserialize_MeasurementGraph.cpp: a complete JSON round-trip of the graph
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from opencalibration_tpu_torch import interop
+from opencalibration_tpu_torch.io.png import decode_png, encode_png
 from opencalibration_tpu_torch.types.camera import CameraModel
 from opencalibration_tpu_torch.types.graph import (
     CameraRelations,
@@ -62,21 +63,13 @@ def _dec(obj) -> Optional[np.ndarray]:
 def _enc_png(img: Optional[np.ndarray]):
     if img is None:
         return None
-    import cv2
-
-    ok, buf = cv2.imencode(".png", img)
-    if not ok:
-        return None
-    return base64.b64encode(buf.tobytes()).decode("ascii")
+    return base64.b64encode(encode_png(img)).decode("ascii")
 
 
 def _dec_png(s) -> Optional[np.ndarray]:
     if s is None:
         return None
-    import cv2
-
-    buf = np.frombuffer(base64.b64decode(s), np.uint8)
-    return cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+    return decode_png(base64.b64decode(s))
 
 
 def _metadata_to_json(md: ImageMetadata) -> dict:

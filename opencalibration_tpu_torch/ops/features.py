@@ -29,6 +29,7 @@ SUBLEVELS = 4
 BASE_SIGMA = 1.6
 DETECTOR_THRESHOLD = 1e-4  # on the normalised Hessian response of [0, 1] images
 PATCH_RADIUS_SIGMAS = 10.0  # patch half-size in units of keypoint sigma
+U8_SCALE = float(np.float32(1.0 / 255.0))  # uint8 -> [0, 1]
 
 _DX = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], np.float32) / 8.0
 _DY = np.ascontiguousarray(_DX.T)
@@ -336,7 +337,9 @@ def extract_features(images, max_features: int = 4096, threshold: float = DETECT
 
     Returns dict(xy, strength, sigma, level, valid, angle, descriptors)."""
     if images.dtype == torch.uint8:
-        images = images.to(torch.float32) / 255.0
+        # the product with float32(1 / 255), as XLA compiles the reference's
+        # division: a true division differs in the last bit on a third of the pixels
+        images = images.to(torch.float32) * U8_SCALE
     with full_fp32():
         det = detect(images, max_features=max_features, threshold=threshold)
         desc, angle = describe(images, det)

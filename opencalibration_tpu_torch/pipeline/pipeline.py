@@ -1,5 +1,5 @@
 """Pipeline facade and state machine (twin of
-opencalibration_tpu/pipeline/pipeline.py), through FINAL_GLOBAL_RELAX, with
+opencalibration_tpu/pipeline/pipeline.py), from images to COMPLETE, with
 checkpoints.
 
 ``Pipeline()`` (on the card; ``device="cpu"`` to run on the CPU) takes image
@@ -12,8 +12,14 @@ the same ground-mesh relax over every image, reusing the problem structure
 across their passes. CAMERA_PARAMETER_RELAX runs the same relax with the
 camera intrinsics free, tier by tier (focal; then the radial terms one at a
 time; then the principal point), over one cached problem structure, and
-refits every edge once at its end. Every state after FINAL_GLOBAL_RELAX
-raises ``NotImplementedError`` naming its ROADMAP item.
+refits every edge once at its end. GENERATE_THUMBNAIL renders the thumbnail
+mosaic; GENERATE_LAYERS, COLOR_BALANCE and BLEND_LAYERS write the DSM, the
+colour-balanced blended orthomosaic, the camera-id raster and the textured
+OBJ where their paths are set (``ortho_path``, ``dsm_path``,
+``camera_id_path``, ``textured_obj_prefix``), and pass through where not.
+DENSIFY_MESH and DENSE_MESH_RELAX are skipped by the default
+``skip_dense_mesh``; switched on they raise ``NotImplementedError`` naming
+their ROADMAP item. ``iterate_once`` returns "DONE" at COMPLETE.
 ``save_checkpoint`` / ``load_checkpoint`` write and read the state, the graph
 with its camera models, and the surfaces.
 
@@ -69,13 +75,8 @@ FINAL_RELAX_MAX_ITERATIONS = 3  # FINAL_GLOBAL_RELAX: its last pass is one group
 
 # where each state not ported yet stands in ROADMAP.md (queue 1)
 _NOT_PORTED = {
-    PipelineState.GENERATE_THUMBNAIL: "queue 1, Slice C (the ortho tail)",
     PipelineState.DENSIFY_MESH: "queue 1, Slice D (dense stereo)",
     PipelineState.DENSE_MESH_RELAX: "queue 1, Slice D (dense stereo)",
-    PipelineState.GENERATE_LAYERS: "queue 1, Slice C (the ortho tail)",
-    PipelineState.COLOR_BALANCE: "queue 1, Slice C (the ortho tail)",
-    PipelineState.BLEND_LAYERS: "queue 1, Slice C (the ortho tail)",
-    PipelineState.COMPLETE: "queue 1, Slice C (the ortho tail)",
 }
 
 # stage weights for global progress
@@ -109,6 +110,9 @@ class StepCompletionInfo:
     global_progress: float
     local_progress: float
     surfaces_updated: bool = False
+    # live tile preview during ortho generation
+    # (reference pipeline/progress.hpp:15-34 TileUpdate)
+    tile_update: Optional[dict] = None
 
 
 class Pipeline:
@@ -152,6 +156,18 @@ class Pipeline:
         self.skip_camera_param_relax = False
         self.skip_final_global_relax = False
         self.skip_mesh_refinement = False
+        self.skip_dense_mesh = True
+
+        # ortho output configuration (reference Pipeline set_* setters)
+        self.ortho_path: Optional[str] = None
+        self.dsm_path: Optional[str] = None
+        self.camera_id_path: Optional[str] = None
+        self.thumbnail_path: Optional[str] = None
+        self.textured_obj_prefix: Optional[str] = None
+        self.ortho_max_megapixels: float = 64.0
+        self.generate_thumbnails = True
+        self.thumbnail_mosaic = None
+        self._ortho_job = None
 
     # --- public API -------------------------------------------------------
     def add(self, paths: Sequence[str]):
@@ -188,23 +204,22 @@ class Pipeline:
 
     def iterate_once(self) -> str:
         state = self._state
-        handler = getattr(self, "_run_" + state.lower(), None)
-        if handler is None:
-            raise NotImplementedError(
-                f"pipeline state {state} is not ported yet: ROADMAP {_NOT_PORTED[state]}"
-            )
+        handler = getattr(self, "_run_" + state.lower())
         with PerformanceMeasure(f"state {state}"):
             transition = handler()
         if transition == "NEXT":
             self._state = PipelineState.ORDER[PipelineState.ORDER.index(state) + 1]
             self._state_run_count = 0
             self._relax_plan = None  # the cache is per state
-        else:
+        elif transition == "REPEAT":
             self._state_run_count += 1
+        else:  # "DONE" at COMPLETE: neither a later state nor a counted repeat
+            return transition
         return self._state
 
     def run_to_completion(self, max_iterations: int = 10000) -> str:
-        """Iterate to COMPLETE; raises at the first state not ported yet."""
+        """Iterate to COMPLETE; raises at a state not ported yet (the dense
+        mesh states, where ``skip_dense_mesh`` is off)."""
         for _ in range(max_iterations):
             if self._state == PipelineState.COMPLETE:
                 break
@@ -212,7 +227,7 @@ class Pipeline:
         return self._state
 
     # --- progress ---------------------------------------------------------
-    def _emit(self, loaded, linked, relaxed, activity, local=1.0, surfaces_updated=False):
+    def _emit(self, loaded, linked, relaxed, activity, local=1.0, surfaces_updated=False, tile_update=None):
         if self.step_callback is None:
             return
         order = PipelineState.ORDER
@@ -230,6 +245,7 @@ class Pipeline:
             global_progress=(done + current) / total,
             local_progress=local,
             surfaces_updated=surfaces_updated,
+            tile_update=tile_update,
         ))
 
     # --- states -----------------------------------------------------------
@@ -463,6 +479,87 @@ class Pipeline:
         relaxed = self._global_relax(RelaxOptions(orientation=True, ground_mesh=True), None, last)
         self._emit([], [], relaxed, "final global relax", surfaces_updated=True)
         return "NEXT" if last else "REPEAT"
+
+    def _run_generate_thumbnail(self) -> str:
+        if self.generate_thumbnails and self.surfaces:
+            from opencalibration_tpu_torch.ortho.ortho import generate_orthomosaic
+
+            if self.thumbnail_path and not self.thumbnail_path.lower().endswith(".png"):
+                raise NotImplementedError(
+                    f"thumbnail_path {self.thumbnail_path!r}: only .png is written without "
+                    "OpenCV (ROADMAP queue 1, B8b: image codecs)"
+                )
+            self.thumbnail_mosaic = generate_orthomosaic(
+                self.surfaces, self.graph, self.model_store, device=self.device
+            )
+            if self.thumbnail_mosaic is not None and self.thumbnail_path:
+                from opencalibration_tpu_torch.io.png import encode_png
+
+                with open(self.thumbnail_path, "wb") as f:
+                    f.write(encode_png(self.thumbnail_mosaic.rgba))
+        self._emit([], [], [], "thumbnail")
+        return "NEXT"
+
+    def _run_densify_mesh(self) -> str:
+        if self.skip_dense_mesh:
+            return "NEXT"
+        raise NotImplementedError(
+            f"pipeline state {self._state} is not ported yet: ROADMAP {_NOT_PORTED[self._state]}"
+        )
+
+    _run_dense_mesh_relax = _run_densify_mesh
+
+    def _wants_ortho(self) -> bool:
+        return bool(self.ortho_path or self.textured_obj_prefix or self.dsm_path)
+
+    def _run_generate_layers(self) -> str:
+        if not self._wants_ortho() or not self.surfaces:
+            return "NEXT"
+        from opencalibration_tpu_torch.ortho.ortho import OrthoJob, generate_dsm_geotiff
+
+        if self.dsm_path:
+            generate_dsm_geotiff(
+                self.dsm_path, self.surfaces, self.graph, self.model_store,
+                self.geocoord, max_megapixels=self.ortho_max_megapixels, device=self.device,
+            )
+        if self.ortho_path or self.textured_obj_prefix:
+            self._ortho_job = OrthoJob(
+                self.surfaces, self.graph, self.model_store, self.geocoord,
+                max_megapixels=self.ortho_max_megapixels, device=self.device,
+            )
+            if self._ortho_job.ok:
+                self._ortho_job.pass_layers()
+        self._emit([], [], [], "generate layers")
+        return "NEXT"
+
+    def _run_color_balance(self) -> str:
+        if self._ortho_job is not None and self._ortho_job.ok:
+            self._ortho_job.solve_balance()
+        self._emit([], [], [], "color balance")
+        return "NEXT"
+
+    def _run_blend_layers(self) -> str:
+        if self._ortho_job is not None and self._ortho_job.ok:
+            out_path = self.ortho_path or ((self.textured_obj_prefix or "ortho") + "_texture.tif")
+
+            def on_tile(info):
+                self._emit([], [], [], "blend tile", local=info.get("fraction_done", 0.0), tile_update=info)
+
+            self._ortho_job.tile_callback = on_tile
+            self._ortho_job.pass_blend(out_path, camera_id_path=self.camera_id_path)
+            if self.textured_obj_prefix:
+                from opencalibration_tpu_torch.io.geotiff import read_geotiff
+                from opencalibration_tpu_torch.ortho.ortho import generate_textured_obj
+
+                img, origin, px, _ = read_geotiff(out_path)
+                generate_textured_obj(self.textured_obj_prefix, self.surfaces, img, origin, px[0])
+        self._emit([], [], [], "blend layers")
+        return "NEXT"
+
+    def _run_complete(self) -> str:
+        # terminal: neither NEXT (no later state) nor REPEAT (callers looping
+        # on iterate_once() would spin the run counter)
+        return "DONE"
 
     @staticmethod
     def _merge_group_surfaces(surfaces: List[SurfaceModel]) -> List[SurfaceModel]:

@@ -17,6 +17,9 @@ from opencalibration_tpu.extract import camera_database as JDB
 from opencalibration_tpu.extract import image_loader as JL
 from opencalibration_tpu.extract import metadata as JMD
 from opencalibration_tpu.geo.geo_coord import GeoCoord as JGeoCoord
+from opencalibration_tpu.io import geotiff as JGT
+from opencalibration_tpu.ortho import image_cache as JIC
+from opencalibration_tpu.ortho import tile_ordering as JTO
 from opencalibration_tpu.ops.clustering import spectral_cluster as j_cluster
 from opencalibration_tpu.pipeline.stages import _apply_sidecar_metadata as j_sidecar
 from opencalibration_tpu.surface import mesh as JM
@@ -28,6 +31,9 @@ from opencalibration_tpu_torch.extract import camera_database as TDB
 from opencalibration_tpu_torch.extract import image_loader as TL
 from opencalibration_tpu_torch.extract import metadata as TMD
 from opencalibration_tpu_torch.geo.geo_coord import GeoCoord as TGeoCoord
+from opencalibration_tpu_torch.io import geotiff as TGT
+from opencalibration_tpu_torch.ortho import image_cache as TIC
+from opencalibration_tpu_torch.ortho import tile_ordering as TTO
 from opencalibration_tpu_torch.ops.clustering import spectral_cluster as t_cluster
 from opencalibration_tpu_torch.pipeline.stages import _apply_sidecar_metadata as t_sidecar
 from opencalibration_tpu_torch.surface import mesh as TM
@@ -306,3 +312,114 @@ def test_surface_round_trip():
     for a, b in zip(back.cloud, ref.cloud):
         np.testing.assert_array_equal(a, b)
     assert interop.surface_from(JG.SurfaceModel()).mesh is None
+
+
+# ---------------------------------------------------------------------------
+# Orthomosaic host modules: tile ordering, image cache, GeoTIFF
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nx,ny,cache", [(8, 8, 3), (5, 3, 2), (1, 7, 4), (6, 6, 16)])
+def test_tile_ordering(nx, ny, cache):
+    """Hilbert order, simulated misses and the chosen order equal the
+    original's on seeded tile / camera assignments."""
+    rng = np.random.default_rng(nx * 100 + ny)
+    tile_cams = {ty * nx + tx: {int(c) for c in rng.choice(12, size=rng.integers(1, 5), replace=False)} | {tx // 2}
+                 for ty in range(ny) for tx in range(nx)}
+    assert TTO.hilbert_tile_order(nx, ny) == JTO.hilbert_tile_order(nx, ny)
+    order = TTO.compute_cache_aware_tile_order(tile_cams, nx, ny, cache)
+    assert order == JTO.compute_cache_aware_tile_order(tile_cams, nx, ny, cache)
+    assert sorted(order) == sorted((x, y) for y in range(ny) for x in range(nx))
+    assert TTO.simulate_cache_misses(order, tile_cams, nx, cache) == JTO.simulate_cache_misses(
+        order, tile_cams, nx, cache)
+
+
+def test_image_cache_with_stub_loader(tmp_path):
+    """The LRU, its counters and the prefetch behave as the original's under
+    the same calls; the port's default loader reads a PPM without OpenCV."""
+    logs = []
+    for mod in (JIC, TIC):
+        loads = []
+
+        def loader(path, loads=loads):
+            loads.append(path)
+            return None if path == "missing" else np.full((2, 2, 3), len(loads), np.uint8)
+
+        cache = mod.FullResolutionImageCache(max_images=2, loader=loader)
+        got = [cache.get(p) for p in ("a", "a", "b", "missing", "c", "a")]
+        for f in cache.prefetch(["b", "d"]):
+            f.result()
+        logs.append((sorted(loads), cache.hits, cache.misses, [None if g is None else int(g[0, 0, 0]) for g in got]))
+        cache.clear()
+        assert cache.get("a") is not None and cache.misses == logs[-1][2] + 1
+    assert logs[0] == logs[1] and logs[1][1] == 1
+    rgb = np.random.default_rng(0).integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    TS.write_ppm(str(tmp_path / "a.ppm"), rgb)
+    np.testing.assert_array_equal(TIC.default_loader(str(tmp_path / "a.ppm")), rgb[..., ::-1])
+    assert TIC.default_loader(str(tmp_path / "none.ppm")) is None
+
+
+def _geotiff_cases():
+    rng = np.random.default_rng(3)
+    return {
+        "rgba_uint8": (rng.integers(0, 256, (150, 210, 4), dtype=np.uint8), None, 3),
+        "gray_uint8": (rng.integers(0, 256, (40, 33, 1), dtype=np.uint8), None, 0),
+        "dsm_float32": (rng.normal(size=(97, 130)).astype(np.float32), -32767.0, 2),
+    }
+
+
+@pytest.mark.parametrize("case", list(_geotiff_cases()))
+@pytest.mark.parametrize("writer", ["jax_package", "port"])
+def test_geotiff_round_trip_across_packages(tmp_path, case, writer):
+    """A file written by either package is read by both with equal arrays,
+    georeference, WKT and overview shapes, and the two writers' bytes are
+    equal."""
+    image, nodata, overviews = _geotiff_cases()[case]
+    geo = TGeoCoord()
+    geo.set_origin(47.4, 8.5)
+    wkt = geo.get_wkt()
+    paths = {}
+    for name, mod in (("jax_package", JGT), ("port", TGT)):
+        paths[name] = str(tmp_path / f"{name}.tif")
+        mod.write_geotiff(paths[name], image, (100.5, 2000.25), (0.25, 0.25), wkt=wkt, nodata=nodata,
+                          overviews=overviews)
+    assert open(paths["port"], "rb").read() == open(paths["jax_package"], "rb").read()
+    for mod in (JGT, TGT):
+        img, origin, px, got_wkt = mod.read_geotiff(paths[writer])
+        np.testing.assert_array_equal(img.reshape(image.shape), image)
+        assert origin == (100.5, 2000.25) and px == (0.25, 0.25) and got_wkt == wkt
+        shapes = mod.read_geotiff_overviews(paths[writer])
+        assert len(shapes) == 1 + overviews and shapes[0] == image.shape[:2]
+
+
+@pytest.mark.parametrize("dtype,channels,overviews", [(np.uint8, 4, 3), (np.uint64, 1, 0), (np.float32, 1, 0)],
+                         ids=["rgba_uint8", "camera_ids_uint64", "float32"])
+def test_geotiff_tile_writer_across_packages(tmp_path, dtype, channels, overviews):
+    """Tiles streamed in a scrambled order through either package's writer
+    give files that both readers read to the same raster; uint64 camera ids
+    above 2^53 survive."""
+    rng = np.random.default_rng(4)
+    W, H, ts = 300, 170, 64
+    if dtype == np.uint64:
+        full = rng.integers(0, 2 ** 63, (H, W, channels), dtype=np.uint64)
+    elif dtype == np.uint8:
+        full = rng.integers(0, 256, (H, W, channels), dtype=np.uint8)
+    else:
+        full = rng.normal(size=(H, W, channels)).astype(np.float32)
+    tiles = [(tx, ty) for ty in range((H + ts - 1) // ts) for tx in range((W + ts - 1) // ts)]
+    order = [tiles[i] for i in rng.permutation(len(tiles))]
+    paths = []
+    for name, mod in (("jax_package", JGT), ("port", TGT)):
+        path = str(tmp_path / f"{name}.tif")
+        with mod.GeoTiffTileWriter(path, W, H, channels, dtype, (10.0, 500.0), (0.5, 0.5), tile_size=ts,
+                                   overviews=overviews) as w:
+            for tx, ty in order:
+                w.write_tile(tx, ty, full[ty * ts:(ty + 1) * ts, tx * ts:(tx + 1) * ts])
+        paths.append(path)
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    for path in paths:
+        for mod in (JGT, TGT):
+            img, origin, px, _ = mod.read_geotiff(path)
+            assert img.dtype == dtype and origin == (10.0, 500.0) and px == (0.5, 0.5)
+            np.testing.assert_array_equal(img.reshape(full.shape), full)
+            assert len(mod.read_geotiff_overviews(path)) == 1 + overviews

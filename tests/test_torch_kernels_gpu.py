@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernel against its plain PyTorch version, and
-the port's solvers on the card against the CPU.
+the port's solvers and its orthomosaic tail on the card against the CPU.
 
 Tests marked ``gpu`` need a CUDA device and skip without one; the device is
 looked up inside a fixture, so every worker collects the same tests. This
@@ -321,3 +321,70 @@ def test_shared_solver_cuda_matches_cpu(cuda):
     assert abs(f_gpu - 600.0) < 2.0 and abs(f_gpu / f_cpu - 1.0) < 1e-3
     flip = torch.sign(torch.sum(gpu.quats.cpu() * cpu.quats, dim=-1, keepdim=True))
     assert float((flip * gpu.quats.cpu() - cpu.quats).abs().max()) < 1e-3
+
+
+# --- the orthomosaic tail ------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_lab_to_bgr_on_the_card_equals_numpy(cuda):
+    from opencalibration_tpu_torch.ops.color import lab_u8_to_bgr
+
+    lab = np.random.default_rng(0).integers(0, 256, (256, 256, 3), dtype=np.uint8)
+    got = lab_u8_to_bgr(torch.from_numpy(lab).to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.cpu().numpy(), lab_u8_to_bgr(lab))
+
+
+@pytest.mark.gpu
+def test_color_balance_is_bit_identical_across_runs(cuda, tmp_path):
+    """``solve_color_balance`` twice on the card from one set of
+    correspondences: every parameter and the cost equal to the bit."""
+    from opencalibration_tpu_torch.ortho.color_balance import solve_color_balance
+    from opencalibration_tpu_torch.testing import ortho_cases
+
+    state = ortho_cases.ground_truth_state(str(tmp_path))
+    job = ortho_cases.run_ortho_tail(state, str(tmp_path), "cuda")["job"]
+    assert len(job.correspondences) > 50
+    positions = {nid: np.asarray(n.payload.position[:2]) for nid, n in state["graph"].nodes()}
+    a = solve_color_balance(job.correspondences, positions, device="cuda")
+    b = solve_color_balance(job.correspondences, positions, device="cuda")
+    assert a.success and a.final_cost == b.final_cost
+    np.testing.assert_array_equal(ortho_cases.balance_vector(a), ortho_cases.balance_vector(b))
+    np.testing.assert_array_equal(ortho_cases.balance_vector(a), ortho_cases.balance_vector(job.balance))
+
+
+@pytest.mark.gpu
+def test_ortho_tail_cuda_matches_cpu(cuda, tmp_path):
+    """Layers, balance and blend from one ground-truth state on the card and
+    on the CPU, within ``ortho_cases``' stated tolerances."""
+    from opencalibration_tpu_torch.testing import ortho_cases
+
+    state = ortho_cases.ground_truth_state(str(tmp_path))
+    on_card = ortho_cases.run_ortho_tail(state, str(tmp_path), "cuda")
+    on_cpu = ortho_cases.run_ortho_tail(state, str(tmp_path), "cpu")
+    print(ortho_cases.compare_ortho_tails(on_card, on_cpu))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: beside other test processes torch's default of a
+    thread a core makes many small CPU ops tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_ortho_tail_runs_are_reproducible_on_the_cpu(tmp_path, one_thread):
+    """The same comparison between two CPU runs holds trivially and to the
+    bit: what the card is held to is a real bound, not a loose one."""
+    from opencalibration_tpu_torch.testing import ortho_cases
+
+    state = ortho_cases.ground_truth_state(str(tmp_path))
+    a = ortho_cases.run_ortho_tail(state, str(tmp_path), "cpu", name="a")
+    b = ortho_cases.run_ortho_tail(state, str(tmp_path), "cpu", name="b")
+    out = ortho_cases.compare_ortho_tails(a, b)
+    assert out["rgba_equal_share"] == 1.0 and out["balance_max_abs"] == 0.0 and out["correspondences"] > 50
+    median, share = ortho_cases.median_l_error(a["ortho_path"], state["positions"])
+    assert share > 0.6 and median <= 8.0

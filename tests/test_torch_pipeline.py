@@ -151,8 +151,15 @@ def test_later_states_raise_and_device_is_required():
     after = [p.iterate_once() for _ in range(6)]
     assert after == [PipelineState.CAMERA_PARAMETER_RELAX] * 5 + [PipelineState.FINAL_GLOBAL_RELAX]
     assert p.iterate_once() == PipelineState.GENERATE_THUMBNAIL
-    with pytest.raises(NotImplementedError, match="Slice C"):
+    # the ortho tail is ported: with no output path set it is passed through
+    assert p.run_to_completion() == PipelineState.COMPLETE
+    assert p.iterate_once() == "DONE" and p.state_run_count() == 0
+    # the dense-mesh states are not, and say where they stand when switched on
+    p.reset_state(PipelineState.DENSIFY_MESH)
+    p.skip_dense_mesh = False
+    with pytest.raises(NotImplementedError, match="Slice D"):
         p.run_to_completion()
+    p.skip_dense_mesh = True
     # and it is passed at once when skipped
     p.reset_state(PipelineState.CAMERA_PARAMETER_RELAX)
     p.skip_camera_param_relax = True

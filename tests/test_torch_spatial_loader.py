@@ -107,7 +107,8 @@ def test_netpbm_decode_equals_opencv(tmp_path, ext):
     ref = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2GRAY)
     got = TL.load_and_decode(path)
     np.testing.assert_array_equal(got.gray, ref)
-    assert got.scale == 1.0 and got.node.thumbnail is None
+    assert got.scale == 1.0
+    np.testing.assert_array_equal(got.node.thumbnail, JL.load_and_decode(path).node.thumbnail)
     # a header comment, as other writers emit
     data = open(path, "rb").read()
     commented = data[:3] + b"# written by a test\n" + data[3:]
