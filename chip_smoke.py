@@ -48,10 +48,11 @@ Phases, each printing its lines:
    the matrix-free linear solvers on the card (their difference and time per
    LM iteration), and the matrix-free solve run twice, bit for bit;
 9. the whole pipeline at full size, the main path: the 24-image survey over
-   the same relief, written in colour (binary PPM) with a seeded +-10 %
-   exposure gain per image, its geotags' focal length 5 % above the true
-   2000 px, from
-   ``add(paths)`` with the pipeline's defaults through INITIAL_PROCESSING,
+   the same relief, written in colour as JPEG (quality 95, the port's own
+   encoder) with a seeded +-10 % exposure gain per image, its geotags' focal
+   length 5 % above the true 2000 px, from
+   ``add(paths)`` with the pipeline's defaults (float64 relax problems, as
+   the runner's) through INITIAL_PROCESSING,
    MESH_REFINEMENT, CAMERA_PARAMETER_RELAX with the intrinsics free, the
    edge refit and FINAL_GLOBAL_RELAX to GENERATE_THUMBNAIL: seconds, passes,
    LM iterations, problem builds and refreshes per state; per pass of
@@ -62,9 +63,14 @@ Phases, each printing its lines:
    that kept inliers, one build and five refreshes in the state, one refit;
    then ``save_checkpoint``, ``load_checkpoint`` into a fresh pipeline, and
    the two compared; then the same pipeline carries on through
-   GENERATE_THUMBNAIL, GENERATE_LAYERS, COLOR_BALANCE and BLEND_LAYERS to
-   COMPLETE with the reference's defaults (64 MP cap, tiles of 256, 3 x 3
-   taps, four blend levels) and every output path set: seconds per state,
+   GENERATE_THUMBNAIL, DENSIFY_MESH, DENSE_MESH_RELAX, GENERATE_LAYERS,
+   COLOR_BALANCE and BLEND_LAYERS to COMPLETE with the reference's defaults
+   (64 MP cap, tiles of 256, 3 x 3 taps, four blend levels), the dense mesh
+   on and every output path set: the dense features per image, pairs
+   matched and ``gated_match``'s time a pair, matches, tracks and points
+   kept (checked: at least 2.5 x the sparse track points, their heights and
+   the refined mesh's against the relief), peak memory per state, the JPEG
+   decode and encode times per call and where they ran, seconds per state,
    the mosaic's size, GSD and tiles, the ``ortho: ...`` scope counters, the
    correspondences, the balance's cost, image-cache hits and misses, device
    uploads, peak memory. Checked: a Lab thumbnail of 58 x 43 on every node;
@@ -77,7 +83,8 @@ Phases, each printing its lines:
    pixels by which calibrated poses miss the scene); a second job at 2 MP blended with and without the colour
    balance (the balance must lower the error: the exposure gains are
    flattened, not kept); ``solve_color_balance`` run twice on the card, bit
-   for bit;
+   for bit; then the runner's own outputs written through
+   ``apps/pipeline_runner.py::write_outputs`` and read back;
 10. the shared-intrinsics joint solver on the card against the CPU: the
    state in which phase 8 reached CAMERA_PARAMETER_RELAX (kept aside there;
    the refined mesh, the orientations of MESH_REFINEMENT) is split into
@@ -89,12 +96,19 @@ Phases, each printing its lines:
 11. the ortho tail on the card against the CPU from one ground-truth state
    (a 2 x 3 colour survey at 320 x 240, ``testing/ortho_cases.py``): the
    same correspondences, balance parameters, RGBA bytes and camera ids
-   within the stated tolerances.
+   within the stated tolerances;
+12. the CLI end to end: ``python -m
+   opencalibration_tpu_torch.apps.pipeline_runner --device cuda`` in a
+   subprocess where jax, the JAX package, cv2 and PIL cannot be imported,
+   on a 2 x 3 JPEG survey at 320 x 240 over the relief, with every flag of
+   the JAX package's tests/test_cli.py and ``--dense-mesh 1``: exit 0, the
+   reference's 14 artifacts, the graph JSON and the checkpoint read back,
+   and ``extract_camera_db`` run on the checkpoint writing its focal.
 
 The ``kernels`` line gives each kernel's launches on the main path, phase 9
-(INITIAL_PROCESSING through the camera parameters and the ortho tail to
-COMPLETE),
-and on the paths of phases 8, 7 and 5, each taken with the counter set to 0
+(INITIAL_PROCESSING through the camera parameters, the dense mesh and the
+ortho tail to COMPLETE), and on the paths of phases 12 (counted in the
+runner's own process), 8, 7 and 5, each taken with the counter set to 0
 just before the path and read just after it, and phase 3's times and bounds
 (``*_link`` at the link's shape). Run from the repository root with
 ``python3 chip_smoke.py`` (``--phases 2,9`` runs a subset and prints neither
@@ -119,6 +133,7 @@ import time
 import numpy as np
 import torch
 
+from opencalibration_tpu_torch.dense import dense_stereo as DS
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import hamming_cuda
@@ -131,6 +146,7 @@ from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.relax import lm as LM
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
 from opencalibration_tpu_torch.io import geotiff
+from opencalibration_tpu_torch.io.jpeg import decode_jpeg
 from opencalibration_tpu_torch.ortho.color_balance import solve_color_balance
 from opencalibration_tpu_torch.ortho.ortho import OrthoJob
 from opencalibration_tpu_torch.testing import hamming_cases as HC
@@ -182,6 +198,14 @@ ORTHO_COVERED_SHARE, ORTHO_MEDIAN_L, ORTHO_MARGIN_M, ORTHO_SMOOTH_M = 0.98, 7.0,
 GAIN_SPREAD = 0.1
 BALANCE_CHECK_MEGAPIXELS = 2.0
 THUMBNAIL_HW = (43, 58)  # of a 1600 x 1200 image
+# DENSIFY_MESH: the dense cloud against the sparse track points (the JAX
+# package's tests/test_dense.py)
+DENSE_OVER_SPARSE = 2.5
+# the dense points' heights: the median as the mesh's, the 4 m bound on the
+# 90th percentile, as the JAX package's own dense test bounds its points
+# (its maximum is an outlier's: a two-ray track from neighbouring images, a
+# 12 m baseline at 60 m, passes the 8 px reprojection gate far off the ground)
+DENSE_OUTLIER_PERCENTILE = 90
 # the shared solver in float32, CUDA against CPU, on the 3 x 3 relief survey
 SHARED_GROUP_SIZE, SHARED_MAX_ITERATIONS = 3, 50
 SHARED_FOCAL_REL, SHARED_DEG = 5e-3, 0.1
@@ -469,6 +493,25 @@ class _LinkRecorder:
         ST._match_and_ransac_batch = self._orig
 
 
+CODEC_KEYS = ("jpeg: decode", "jpeg: encode")  # io/jpeg.py's scopes
+
+
+def _codec_counts():
+    return {k: (performance.get_timer_count(k), performance.get_timer_total(k)) for k in CODEC_KEYS}
+
+
+def _codec_line(label, where, before=None):
+    """The port's JPEG codec calls under the performance counters (since
+    ``before``, a ``_codec_counts()``, or their last reset): calls and host
+    milliseconds a call."""
+    now = _codec_counts()
+    for k in CODEC_KEYS:
+        n, total = now[k][0] - (before or {}).get(k, (0, 0.0))[0], now[k][1] - (before or {}).get(k, (0, 0.0))[1]
+        if n:
+            print(f"[{label}] JPEG {k.split(': ')[1]} ({where}): {n} calls, {1e3 * total / n:.3f} ms a call "
+                  f"(host clock)")
+
+
 def _check_link_chunk(chunk, label):
     d1, d2, v1, v2 = chunk
     got = H.match_descriptors(d1, d2, v1, v2)
@@ -530,25 +573,31 @@ def phase_pipeline_cuda_vs_cpu():
     return launches
 
 
-def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=None, color=False):
+def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=None, color=False, fmt="netpbm"):
     """INITIAL_PROCESSING at full image size (``cfg``, default FULL) over
     terrain with ``relief_m`` of relief, the geotags carrying
-    ``focal_px_tag`` (default: the true focal); ``color`` writes PPM files
-    with a seeded exposure gain per image. Returns the pipeline, the
+    ``focal_px_tag`` (default: the true focal); ``color`` writes colour
+    files with a seeded exposure gain per image, PPM or with ``fmt="jpg"``
+    JPEG at quality 95 through the port's encoder. Returns the pipeline, the
     survey's paths, positions and orientations, and the state's kernel
     launches."""
     cfg = cfg or FULL
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
     t0 = time.perf_counter()
     paths, positions, quats_gt = S.write_survey(
         directory, cfg["rows"], cfg["cols"], spacing=SPACING, width=cfg["width"], height=cfg["height"],
         focal=cfg["focal"], focal_px_tag=focal_px_tag, texture=cfg["texture"], relief_amplitude=relief_m,
         relief_wavelength=RELIEF_WAVELENGTH_M, color=color,
-        gains=S.survey_gains(cfg["rows"] * cfg["cols"], spread=GAIN_SPREAD) if color else None, device="cuda",
+        gains=S.survey_gains(cfg["rows"] * cfg["cols"], spread=GAIN_SPREAD) if color else None, fmt=fmt,
+        device="cuda",
     )
-    kind = "PPM (colour, exposure gains)" if color else "PGM"
+    performance.enable_performance_counters(False)
+    kind = ("JPEG" if fmt == "jpg" else "PPM" if color else "PGM") + (" (colour, exposure gains)" if color else "")
     print(f"[{label}] wrote {len(paths)} {kind} images at {cfg['width']}x{cfg['height']} "
           f"(relief {relief_m} m, focal tag {focal_px_tag or cfg['focal']}) in {time.perf_counter() - t0:.2f} s")
-    p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10
+    _codec_line(label, "survey images")
+    p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10, float64 relax problems
     groups = []
     solve_groups = ST.solve_groups
 
@@ -574,6 +623,7 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
     print(f"[{label}] stage counters (host clock; seconds):")
     for line in performance.total_performance_summary().splitlines():
         print(f"[{label}]   {line}")
+    _codec_line(label, "load stage")
     nodes = _by_path(p)
     degree = {path: 0 for path in nodes}
     for a, b in _edge_paths(p):
@@ -591,9 +641,9 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
     return p, paths, positions, quats_gt, launches
 
 
-def _orientation_error(p, paths, quats_gt, label, bounded=True):
+def _orientation_error(p, paths, quats_gt, label, bounded=True, fail=None):
     """Orientation error against the ground truth; with ``bounded``, raise
-    outside the bounds."""
+    outside the bounds (or report through ``fail``)."""
     nodes = _by_path(p)
     err = np.asarray([_angles_deg(nodes[path].orientation, quats_gt[i]) for i, path in enumerate(paths)])
     bounds = f"bounds {MEDIAN_DEG}, {MAX_DEG}" if bounded else "not bounded"
@@ -602,7 +652,10 @@ def _orientation_error(p, paths, quats_gt, label, bounded=True):
     if not np.isfinite(err).all():
         raise AssertionError(f"non-finite orientations: {err.tolist()}")
     if bounded and not (np.median(err) <= MEDIAN_DEG and err.max() <= MAX_DEG):
-        raise AssertionError(f"cameras not recovered: {np.round(err, 3).tolist()}")
+        message = f"cameras not recovered: {np.round(err, 3).tolist()}"
+        if fail is None:
+            raise AssertionError(message)
+        fail(message)
 
 
 class _SolveRecorder:
@@ -633,17 +686,27 @@ class _SolveRecorder:
         ST.solve_groups = self._orig
 
 
-def _height_error(p, positions):
-    """Final mesh heights against the relief at the vertices inside the
-    camera footprint, in the survey's frame (local frame + the first
-    camera's offset)."""
+def _local_offset(p, positions):
+    """The survey's frame minus the pipeline's local one (which starts at
+    the first camera)."""
     first = _by_path(p)[sorted(_by_path(p))[0]]
-    offset = positions[0] - np.asarray(first.position)
-    v = p.surfaces[0].mesh.vertices + offset
+    return positions[0] - np.asarray(first.position)
+
+
+def _relief_error(points, positions, offset):
+    """|height - relief| of ``points`` (local frame) inside the camera
+    footprint, in the survey's frame; and how many were inside."""
+    v = np.asarray(points, np.float64) + offset
     lo, hi = positions[:, :2].min(0), positions[:, :2].max(0)
     inside = np.all((v[:, :2] >= lo) & (v[:, :2] <= hi), axis=1)
     truth = S.relief_height(torch.as_tensor(v[inside, :2]), RELIEF_M, RELIEF_WAVELENGTH_M).numpy()
     return np.abs(v[inside, 2] - truth), int(inside.sum())
+
+
+def _height_error(p, positions):
+    """Final mesh heights against the relief at the vertices inside the
+    camera footprint."""
+    return _relief_error(p.surfaces[0].mesh.vertices, positions, _local_offset(p, positions))
 
 
 def _solve_ms_per_iteration(built, linear_solver):
@@ -827,10 +890,16 @@ def phase_camera_relax(directory):
     kernel launches from INITIAL_PROCESSING to COMPLETE."""
     true_focal = FULL["focal"]
     p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(
-        directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal, color=True)
+        directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal, color=True, fmt="jpg")
     tag = float(p.model_store[1].focal_length_pixels)
     if len(p.model_store) != 1 or abs(tag / true_focal - FOCAL_TAG_FACTOR) > 1e-6 or p.skip_camera_param_relax:
         raise AssertionError(f"the survey's camera model is not the one wrong tag: {p.model_store}")
+    from opencalibration_tpu_torch.apps import pipeline_runner
+
+    runner_dtype = getattr(torch, pipeline_runner.parse_args([]).dtype)
+    print(f"[calib] relax problems in {p.dtype} (the runner's default on the card: {runner_dtype})")
+    if p.dtype != runner_dtype:
+        raise AssertionError("phase 9 does not relax in the runner's dtype")
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
     torch.cuda.reset_peak_memory_stats()
@@ -897,13 +966,13 @@ def phase_camera_relax(directory):
     print(f"[calib] focal {focal:.4f} px against the true {true_focal} (tag {tag:.1f}): error {100 * rel:.4f} % "
           f"(bound {100 * FOCAL_REL_BOUND} %, tag {100 * (FOCAL_TAG_FACTOR - 1):.1f} %)")
     if not (rel < FOCAL_REL_BOUND and rel < FOCAL_TAG_FACTOR - 1.0):
-        raise AssertionError(f"the focal length was not recovered: {focal} against {true_focal}")
-    _orientation_error(p, paths, quats_gt, "calib")
+        _fail(f"the focal length was not recovered: {focal} against {true_focal}")
+    _orientation_error(p, paths, quats_gt, "calib", fail=_fail)
     herr, n_inside = _height_error(p, positions)
     print(f"[calib] mesh height error vs the relief at {n_inside} vertices inside the camera footprint: "
           f"median {np.median(herr):.4f} m, max {herr.max():.4f} m (bounds {HEIGHT_MEDIAN_M}, {HEIGHT_MAX_M})")
     if not n_inside or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
-        raise AssertionError(f"mesh does not follow the relief: {np.round(herr, 3).tolist()}")
+        _fail(f"mesh does not follow the relief: {np.round(herr, 3).tolist()}")
     kept = emptied = 0
     for _, e in p.graph.edges():
         if len(e.payload.inlier_idx1):
@@ -935,7 +1004,7 @@ def phase_camera_relax(directory):
     return launches + phase_ortho_tail(p, paths, positions, directory)
 
 
-KEEP_GOING = False  # --keep-going: the ortho tail's checks report and go on, and the run fails at its end
+KEEP_GOING = False  # --keep-going: phase 9's checks report and go on, and the run fails at its end
 FAILURES = []
 
 
@@ -953,6 +1022,64 @@ def _footprint_window(origin, px, shape_hw, lo_xy, hi_xy):
     return max(r0, 0), min(r1, shape_hw[0]), max(c0, 0), min(c1, shape_hw[1])
 
 
+def _dense_checks(p, positions, sparse, dense):
+    """DENSIFY_MESH and DENSE_MESH_RELAX at full size: the counts, the
+    matcher's time a pair, the dense points and the refined mesh against the
+    relief."""
+    st = p.dense_stats
+    feats = list(st.get("features", {}).values())
+    pairs = st.get("pairs", 0)
+    pts = dense.get("points", np.zeros((0, 3)))
+    print(f"[dense] dense features per image: {feats} (mean {np.mean(feats) if feats else 0:.1f}); {pairs} pairs "
+          f"matched, gated_match {1e3 * st.get('match_seconds', 0.0) / max(pairs, 1):.3f} ms a pair (host clock, "
+          f"synchronised, with the pull of idx and good); {st.get('matches', 0)} matches, {st.get('tracks', 0)} "
+          f"tracks, {len(pts)} points kept after the {DS.MAX_REPROJECTION_ERROR_PIXELS} px gate; sparse track points "
+          f"{sparse}")
+    if sparse <= 0 or len(pts) < DENSE_OVER_SPARSE * sparse:
+        _fail(f"the densified cloud ({len(pts)}) is not {DENSE_OVER_SPARSE} x the sparse tracks ({sparse})")
+    offset = _local_offset(p, positions)
+    if len(pts):
+        err, n_in = _relief_error(pts, positions, offset)
+        q = {k: float(np.percentile(err, k)) for k in (50, 90, 95, 99)} if n_in else {}
+        print(f"[dense] densified points vs the relief at {n_in} points inside the camera footprint: "
+              + ", ".join(f"p{k} {v:.4f} m" for k, v in q.items()) + f", max {err.max() if n_in else 0:.4f} m; "
+              f"{float(np.mean(err > HEIGHT_MAX_M)) if n_in else 0:.5f} of them beyond {HEIGHT_MAX_M} m (bounds: "
+              f"median {HEIGHT_MEDIAN_M} m, p{DENSE_OUTLIER_PERCENTILE} {HEIGHT_MAX_M} m)")
+        if not n_in or not (q[50] <= HEIGHT_MEDIAN_M and q[DENSE_OUTLIER_PERCENTILE] <= HEIGHT_MAX_M):
+            _fail("the densified points do not follow the relief")
+    before, after = dense.get("mesh_before"), p.surfaces[0].mesh
+    err, n_in = _relief_error(after.vertices, positions, offset)
+    print(f"[dense] DENSE_MESH_RELAX: mesh {before.num_vertices} -> {after.num_vertices} vertices, "
+          f"{before.num_triangles} -> {after.num_triangles} triangles; heights vs the relief at {n_in} vertices "
+          f"inside the footprint: median {np.median(err):.4f} m, max {err.max():.4f} m")
+    if after.num_vertices < before.num_vertices or not (np.median(err) <= HEIGHT_MEDIAN_M
+                                                         and err.max() <= HEIGHT_MAX_M):
+        _fail("the refined mesh lost vertices or does not follow the relief")
+
+
+def _write_runner_outputs(p, out):
+    """The runner's own outputs (graph JSON, GeoJSON, XYZ, PLY, camera DB,
+    checkpoint) through ``apps/pipeline_runner.py::write_outputs``, read back."""
+    from opencalibration_tpu_torch.apps import pipeline_runner
+    from opencalibration_tpu_torch.io.serialize import deserialize_graph
+
+    o = lambda name: os.path.join(out, name)  # noqa: E731
+    args = pipeline_runner.parse_args(["-g", o("graph.geojson"), "--graph-file", o("graph.json"), "-p", o("cloud.xyz"),
+                                       "-m", o("mesh.ply"), "--update-camera-db", o("camera_db.json"), "-c", o("ckpt")])
+    t0 = time.perf_counter()
+    pipeline_runner.write_outputs(p, args)
+    took = time.perf_counter() - t0
+    sizes = {n: os.path.getsize(o(n)) for n in ("graph.geojson", "graph.json", "cloud.xyz", "mesh.ply", "camera_db.json")}
+    graph, models = deserialize_graph(open(o("graph.json")).read())[:2]
+    db = json.load(open(o("camera_db.json")))
+    print(f"[ortho] runner outputs written in {took:.2f} s: {sizes} bytes, checkpoint {sorted(os.listdir(o('ckpt')))}; "
+          f"graph JSON reads back with {graph.size_nodes()} nodes, {graph.size_edges()} edges; camera DB focal "
+          f"{db['cameras'][0]['focal_length_pixels']:.4f} px")
+    if (min(sizes.values()) == 0 or graph.size_nodes() != p.graph.size_nodes()
+            or abs(db["cameras"][0]["focal_length_pixels"] - float(p.model_store[1].focal_length_pixels)) > 1e-6):
+        _fail("the runner's outputs do not read back as the pipeline holds them")
+
+
 def phase_ortho_tail(p, paths, positions, directory):
     """GENERATE_THUMBNAIL to COMPLETE on the calibrated pipeline ``p`` with
     every output path set; returns the Hamming kernel's launches in it."""
@@ -961,27 +1088,40 @@ def phase_ortho_tail(p, paths, positions, directory):
     p.ortho_path, p.dsm_path = os.path.join(out, "ortho.tif"), os.path.join(out, "dsm.tif")
     p.camera_id_path, p.thumbnail_path = os.path.join(out, "camera_ids.tif"), os.path.join(out, "thumbnail.png")
     p.textured_obj_prefix = os.path.join(out, "model")
-    tiles = []
+    p.skip_dense_mesh = False
+    sparse = sum(len(c) for c in p.surfaces[0].cloud)
+    tiles, dense = [], {}
     p.step_callback = lambda info: tiles.append(info.tile_update) if info.tile_update else None
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
     torch.cuda.reset_peak_memory_stats()
     hamming_cuda.hamming_top2.launches = 0
-    seconds, last = {}, None
+    seconds, peaks, codec, last = {}, {}, {}, None
     try:
         for _ in range(12):
             state = p.get_state()
+            codec[state] = _codec_counts()
+            if state == PipelineState.DENSE_MESH_RELAX:
+                dense["mesh_before"] = p.surfaces[0].mesh.copy()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             last = p.iterate_once()
             _sync()
             seconds[state] = time.perf_counter() - t0
+            peaks[state] = torch.cuda.max_memory_allocated()
+            _codec_line("ortho", state, codec[state])
+            if state == PipelineState.DENSIFY_MESH:
+                dense["points"] = p.surfaces[0].cloud[-1].copy() if p.dense_stats.get("points") else np.zeros((0, 3))
             if last == "DONE":
                 break
     finally:
         performance.enable_performance_counters(False)
         p.step_callback = None
     launches = hamming_cuda.hamming_top2.launches
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
+    print("[ortho] peak memory allocated per state (GiB): "
+          + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in peaks.items()))
+    _dense_checks(p, positions, sparse, dense)
     if last != "DONE" or p.get_state() != PipelineState.COMPLETE:
         _fail(f"the pipeline did not reach COMPLETE: state {p.get_state()}, last return {last}")
     job = p._ortho_job
@@ -1056,9 +1196,13 @@ def phase_ortho_tail(p, paths, positions, directory):
     if (dsm.dtype != np.float32 or dsm.ndim != 2 or len(levels["dsm"]) != 4
             or abs(dsm_origin[0] - b.min_x) > 1e-6 or abs(dsm_origin[1] - b.max_y) > 1e-6):
         _fail("the DSM GeoTIFF does not read back as written")
-    for name in ("thumbnail.png", "model.obj", "model.mtl", "model.png"):
+    for name in ("thumbnail.png", "model.obj", "model.mtl", "model.jpg"):
         if os.path.getsize(os.path.join(out, name)) == 0:
             _fail(f"{name} is empty")
+    texture = decode_jpeg(open(os.path.join(out, "model.jpg"), "rb").read())
+    if texture is None or texture.shape != img.shape[:2] + (3,):
+        _fail("the textured OBJ's JPEG does not decode to the orthomosaic's size")
+    del texture
 
     # the local frame starts at the first camera: its offset to the survey's frame
     nodes = _by_path(p)
@@ -1152,6 +1296,7 @@ def phase_ortho_tail(p, paths, positions, directory):
           f"{max(abs(q.lab_offset[0]) for q in first.per_image_params.values()):.3f}")
     if not (same and same_as_job):
         _fail("two colour-balance solves of the same correspondences differ")
+    _write_runner_outputs(p, out)
     return launches
 
 
@@ -1239,11 +1384,102 @@ def phase_shared_solver(entry):
         raise AssertionError("the shared solver's CUDA and CPU results disagree")
 
 
+RUNNER_ARTIFACTS = ["graph.geojson", "graph.json", "cloud.xyz", "mesh.ply", "ortho.tif", "dsm.tif", "camera_ids.tif",
+                    "textured.obj", "textured.mtl", "textured.jpg", "thumb.png", "camera_db.json",
+                    os.path.join("ckpt", "metadata.json"), os.path.join("ckpt", "graph.json")]
+_RUNNER_CODE = """
+import json, runpy, sys
+for name in ("jax", "opencalibration_tpu", "cv2", "PIL"):
+    sys.modules[name] = None  # any import of it raises
+from opencalibration_tpu_torch.ops import hamming_cuda
+sys.argv = ["pipeline_runner"] + json.loads(sys.argv[1])
+hamming_cuda.hamming_top2.launches = 0
+rc = 0
+try:
+    runpy.run_module("opencalibration_tpu_torch.apps.pipeline_runner", run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu", "cv2", "PIL")
+                and sys.modules[m])
+print(json.dumps(dict(rc=rc, launches=hamming_cuda.hamming_top2.launches, loaded=loaded)))
+"""
+
+
+def phase_runner():
+    """The CLI end to end on the card: ``python -m
+    opencalibration_tpu_torch.apps.pipeline_runner`` in a subprocess where
+    jax, the JAX package, cv2 and PIL cannot be imported, on a 2 x 3 JPEG
+    survey at 320 x 240 over the relief, every flag of the JAX package's
+    tests/test_cli.py and ``--dense-mesh 1``; then its graph JSON and
+    checkpoint read back and ``extract_camera_db`` run on the checkpoint.
+    Returns the kernel launches the runner's process counted."""
+    from opencalibration_tpu_torch.apps import extract_camera_db
+    from opencalibration_tpu_torch.io.serialize import deserialize_graph
+
+    with tempfile.TemporaryDirectory() as d:
+        images, out = os.path.join(d, "images"), os.path.join(d, "out")
+        os.makedirs(images)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        paths, _, _ = S.write_survey(images, SMALL["rows"], SMALL["cols"], spacing=SPACING, width=SMALL["width"],
+                                     height=SMALL["height"], focal=SMALL["focal"], texture=SMALL["texture"],
+                                     relief_amplitude=RELIEF_M, relief_wavelength=RELIEF_WAVELENGTH_M, color=True,
+                                     gains=S.survey_gains(SMALL["rows"] * SMALL["cols"], spread=GAIN_SPREAD),
+                                     fmt="jpg", device="cuda")
+        o = lambda name: os.path.join(out, name)  # noqa: E731
+        argv = ["-i", images, "--device", "cuda", "--batch-size", "4", "--camera-param-relax", "0",
+                "--final-relax", "1", "-c", o("ckpt"), "-g", o("graph.geojson"), "--graph-file", o("graph.json"),
+                "-p", o("cloud.xyz"), "-m", o("mesh.ply"), "-o", o("ortho.tif"), "--dsm-file", o("dsm.tif"),
+                "--camera-id-file", o("camera_ids.tif"), "-x", o("textured.obj"), "-t", o("thumb.png"),
+                "--update-camera-db", o("camera_db.json"), "--dense-mesh", "1", "-d", "4",
+                "--log-file", o("log.txt"), "--perf"]
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _RUNNER_CODE, json.dumps(argv)], capture_output=True, text=True,
+                           timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+        took = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"the runner's process failed ({r.returncode}): {r.stdout[-3000:]}{r.stderr[-3000:]}")
+        result = json.loads(r.stdout.strip().splitlines()[-1])
+        log = open(o("log.txt")).read()
+        print(f"[runner] {len(paths)} JPEG images at {SMALL['width']}x{SMALL['height']} written in {written:.2f} s; "
+              f"python -m opencalibration_tpu_torch.apps.pipeline_runner --device cuda ... --dense-mesh 1: exit "
+              f"{result['rc']} in {took:.2f} s (process start included); Hamming kernel launches {result['launches']}; "
+              f"jax / opencalibration_tpu / cv2 / PIL loaded: {result['loaded'] or 'none'}")
+        for line in r.stdout.splitlines():
+            if line.startswith("state "):
+                print(f"[runner]   {line}")
+        missing = [n for n in RUNNER_ARTIFACTS if not os.path.exists(o(n)) or os.path.getsize(o(n)) == 0]
+        print(f"[runner] {len(RUNNER_ARTIFACTS) - len(missing)} of {len(RUNNER_ARTIFACTS)} artifacts written and "
+              f"non-empty" + (f"; missing or empty: {missing}" if missing else ""))
+        if result["rc"] != 0 or result["loaded"] or missing or result["launches"] == 0:
+            raise AssertionError(f"the runner did not write its outputs on its own: {result}, missing {missing}")
+        if "DENSIFY_MESH" not in log or "DENSE_MESH_RELAX" not in log:
+            raise AssertionError("the runner's log shows no dense-mesh state")
+        graph, models = deserialize_graph(open(o("graph.json")).read())[:2]
+        q = Pipeline(device="cuda")
+        if not q.load_checkpoint(o("ckpt")) or q.get_state() != PipelineState.COMPLETE:
+            raise AssertionError("the runner's checkpoint does not load at COMPLETE")
+        if graph.size_nodes() != len(paths) or q.graph.size_nodes() != len(paths):
+            raise AssertionError(f"the graph JSON holds {graph.size_nodes()} nodes, the checkpoint "
+                                 f"{q.graph.size_nodes()}, of {len(paths)} images")
+        db_path = o("extracted_db.json")
+        rc = extract_camera_db.main(["-c", o("ckpt"), "-o", db_path, "--device", "cuda"])
+        db = json.load(open(db_path))
+        focal = float(q.model_store[1].focal_length_pixels)
+        print(f"[runner] graph JSON: {graph.size_nodes()} nodes, {graph.size_edges()} edges; checkpoint loaded at "
+              f"{q.get_state()}; extract_camera_db exit {rc}, focal {db['cameras'][0]['focal_length_pixels']:.4f} px "
+              f"(checkpoint {focal:.4f} px); {sum(1 for _ in open(o('cloud.xyz')))} cloud points")
+        if rc != 0 or abs(db["cameras"][0]["focal_length_pixels"] - focal) > 1e-6:
+            raise AssertionError("extract_camera_db did not write the calibrated focal")
+    return result["launches"]
+
+
 def main(argv=()):
     """With no arguments: every phase, then the ``kernels`` line and the
     ``ok`` line. ``--phases 1,2,9`` runs those phases alone (1 and 2 always
-    run) and prints neither line; ``--keep-going`` lets the ortho tail's
-    checks report and go on, and fails at the end."""
+    run) and prints neither line; ``--keep-going`` lets phase 9's checks
+    report and go on, and fails at the end."""
     global KEEP_GOING
     import argparse
 
@@ -1282,6 +1518,7 @@ def main(argv=()):
         phase_shared_solver(relief_entry)
     if want(11):
         phase_ortho_cuda_vs_cpu()
+    runner_launches = phase_runner() if want(12) else None
     _assert_standalone("end")
     print(f"[end] {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
@@ -1292,8 +1529,9 @@ def main(argv=()):
     print(json.dumps({"kernels": [dict(
         name="hamming_top2", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
         launches=calib_launches,
-        paths={"pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX with CAMERA_PARAMETER_RELAX, 24 images, relief, "
-               "... to COMPLETE": calib_launches,
+        paths={"pipeline from 24 JPEG images over relief, every state (dense mesh on) to COMPLETE": calib_launches,
+               "pipeline_runner CLI from JPEG, 6 images at 320x240, relief, --dense-mesh 1, to COMPLETE":
+                   runner_launches,
                "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 9 images at 320x240, relief": mesh_launches,
                "pipeline INITIAL_PROCESSING, flat": ip_launches, "calibration_step": step_launches},
         **kernel,

@@ -15,8 +15,9 @@ binary descriptors are 16 packed 32-bit words per 486-bit descriptor. Torch
 has no usable ``uint32`` arithmetic, so the words travel as ``int32`` tensors
 holding the same bit patterns (``interop`` converts at the boundary).
 
-The entry points (``Pipeline`` and its stages) run on the card unless the
-caller passes ``device="cpu"``; every function that creates tensors from
+The entry points (``apps/pipeline_runner.py`` and ``apps/extract_camera_db.py``
+with ``--device``, ``Pipeline`` and its stages) run on the card unless the
+caller asks for the CPU; every function that creates tensors from
 nothing takes an explicit ``device``; work on a CUDA tensor never falls back
 to the CPU.
 """

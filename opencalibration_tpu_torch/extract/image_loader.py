@@ -7,7 +7,11 @@ Decoding, on the host:
   so a machine without OpenCV reads them. RGB becomes gray with OpenCV's own
   8-bit fixed-point ``BGR2GRAY`` weights, which gives the image that
   ``cv2.imread(..., IMREAD_COLOR)`` + ``cvtColor`` gives the reference.
-* Every other format (JPEG) goes to ``cv2``, imported when needed. Without
+* JPEG goes through the port's own codec (``io/jpeg.py``) on every host,
+  cv2 installed or not; it equals ``cv2.imread(..., IMREAD_COLOR)``. PNG goes
+  through ``io/png.py`` (16-bit samples keep their high byte and alpha is
+  dropped, as ``IMREAD_COLOR`` does).
+* Every other format (TIFF) goes to ``cv2``, imported when needed. Without
   cv2 that raises ``ImportError``: ``None`` means an unreadable file, which
   the load stage skips, and a missing decoder is not one.
 * Images longer than 1600 px are downscaled with ``ops.color.resize_area``
@@ -38,6 +42,8 @@ import torch
 from opencalibration_tpu_torch import interop
 from opencalibration_tpu_torch.extract.camera_database import CameraDatabase, apply_database_entry
 from opencalibration_tpu_torch.extract.metadata import extract_metadata
+from opencalibration_tpu_torch.io.jpeg import JPEG_MAGIC, decode_jpeg
+from opencalibration_tpu_torch.io.png import SIGNATURE as PNG_SIGNATURE, decode_png
 from opencalibration_tpu_torch.ops.color import bgr_to_lab_u8, resize_area
 from opencalibration_tpu_torch.ops.spatial import nms_radius
 from opencalibration_tpu_torch.types.graph import FeatureSet, ImageMetadata, ImageNode
@@ -173,6 +179,16 @@ def _decode(path: str):
         if raster.ndim == 2:  # gray, replicated as cv2.imread(IMREAD_COLOR) does
             return raster.copy(), np.repeat(raster[..., None], 3, axis=2)
         return rgb_to_gray(raster), np.ascontiguousarray(raster[..., ::-1])
+    if data[:2] == JPEG_MAGIC or data[:8] == PNG_SIGNATURE:
+        img = decode_jpeg(data) if data[:2] == JPEG_MAGIC else decode_png(data)
+        if img is None or img.size == 0:
+            return None
+        if img.dtype == np.uint16:
+            img = (img >> 8).astype(np.uint8)
+        if img.ndim == 2:  # gray, replicated as cv2.imread(IMREAD_COLOR) does
+            return img, np.repeat(img[..., None], 3, axis=2)
+        bgr = np.ascontiguousarray(img[..., :3])
+        return rgb_to_gray(bgr[..., ::-1]), bgr
     cv2 = _cv2()
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None or img.size == 0:
@@ -181,8 +197,9 @@ def _decode(path: str):
 
 
 def decode_color(path: str) -> Optional[np.ndarray]:
-    """[H, W, 3] uint8 BGR of an image file (PPM / PGM by numpy, every other
-    format through cv2), or None for an unreadable one."""
+    """[H, W, 3] uint8 BGR of an image file (PPM / PGM by numpy, JPEG and PNG
+    by the port's codecs, every other format through cv2), or None for an
+    unreadable one."""
     decoded = _decode(path)
     return None if decoded is None else decoded[1]
 

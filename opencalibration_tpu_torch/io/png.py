@@ -8,8 +8,8 @@ the file, [H, W, 4] is B, G, R, A in memory and R, G, B, A in the file. A
 reads the other's files.
 
 The writer uses filter 0 (None) on every row. The reader handles the five
-filters of non-interlaced 8-bit files of colour types 0 (gray), 2 (RGB) and
-6 (RGBA).
+filters of non-interlaced 8- and 16-bit files of colour types 0 (gray), 2
+(RGB) and 6 (RGBA).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}
 _CHANNELS = {v: k for k, v in _COLOR_TYPE.items()}
 
@@ -50,7 +50,7 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
     rows = np.zeros((h, 1 + w * c), np.uint8)  # leading filter byte 0 per row
     rows[:, 1:] = _swap_rb(img).reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+    return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))
 
 
@@ -97,11 +97,12 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data) -> Optional[np.ndarray]:
-    """PNG bytes -> uint8 [H, W] (gray), [H, W, 3] (BGR) or [H, W, 4] (BGRA);
-    None when the bytes are no PNG. An interlaced, paletted or 16-bit file
-    raises ``ValueError``."""
+    """PNG bytes -> [H, W] (gray), [H, W, 3] (BGR) or [H, W, 4] (BGRA), uint8
+    for an 8-bit file and uint16 for a 16-bit one, as ``IMREAD_UNCHANGED``
+    gives them; None when the bytes are no PNG. An interlaced or paletted
+    file raises ``ValueError``."""
     data = bytes(data)
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         return None
     pos = 8
     ihdr = None
@@ -120,15 +121,19 @@ def decode_png(data) -> Optional[np.ndarray]:
     if ihdr is None:
         return None
     w, h, depth, ctype, _, _, interlace = ihdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"decode_png reads non-interlaced 8-bit gray / RGB / RGBA files, got depth {depth}, "
+            f"decode_png reads non-interlaced 8- or 16-bit gray / RGB / RGBA files, got depth {depth}, "
             f"colour type {ctype}, interlace {interlace}"
         )
     c = _CHANNELS[ctype]
-    stride = w * c
+    nbytes = depth // 8
+    stride = w * c * nbytes
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         return None
-    img = _unfilter(raw.reshape(h, stride + 1), h, stride, c).reshape(h, w, c)
+    img = _unfilter(raw.reshape(h, stride + 1), h, stride, c * nbytes)
+    if nbytes == 2:  # big-endian samples
+        img = img.view(">u2").astype(np.uint16)
+    img = img.reshape(h, w, c)
     return np.ascontiguousarray(_swap_rb(img) if c > 1 else img[..., 0])

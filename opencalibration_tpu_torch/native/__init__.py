@@ -4,8 +4,9 @@
 Each library is compiled on first use with the system toolchain into
 ``build/native/`` beside the package, named by a hash of its sources, so
 an edited source is rebuilt and the package directory holds no build
-output. Importers fall back to pure-Python implementations when no
-compiler is available.
+output. The EXIF parser falls back to the pure-Python reader when no
+compiler is available; the JPEG codec has no fallback, and a failed build
+raises with the compiler's messages.
 """
 
 from __future__ import annotations
@@ -35,23 +36,45 @@ def _build(name: str, sources) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", *srcs, "-o", tmp]
-    subprocess.run(cmd, check=True, capture_output=True)
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"building {out} failed: {' '.join(cmd)}\n{done.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def load_library(name: str, sources):
-    """Build (if needed) and dlopen a native library; None on failure."""
+def load_library(name: str, sources, required: bool = False):
+    """Build (if needed) and dlopen a native library. On failure: None, or
+    with ``required`` the error (the compiler's messages for a failed build)."""
     with _lock:
         if name in _libs:
             return _libs[name]
         try:
-            path = _build(name, sources)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(_build(name, sources))
         except Exception:
+            if required:
+                raise
             lib = None
         _libs[name] = lib
         return lib
+
+
+def jpeg_library():
+    """The JPEG codec (``jpeg.cpp``); raises if it cannot be built."""
+    lib = load_library("ocjpeg", ["jpeg.cpp"], required=True)
+    if not hasattr(lib, "_configured"):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.oc_jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.oc_jpeg_header.restype = ctypes.c_int
+        lib.oc_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t]
+        lib.oc_jpeg_decode.restype = ctypes.c_int
+        lib.oc_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t)]
+        lib.oc_jpeg_encode.restype = ctypes.c_int
+        lib.oc_jpeg_free.argtypes = [u8p]
+        lib.oc_jpeg_free.restype = None
+        lib._configured = True
+    return lib
 
 
 class ExifResult(ctypes.Structure):

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from opencalibration_tpu_torch.io.geotiff import GeoTiffTileWriter, write_geotiff
+from opencalibration_tpu_torch.io.jpeg import encode_jpeg
 from opencalibration_tpu_torch.io.png import encode_png
 from opencalibration_tpu_torch.ops.color import bgr_to_lab_u8, lab_u8_to_bgr, resize_area
 from opencalibration_tpu_torch.ops.distort import _per_point, image_from_3d, image_to_3d
@@ -1227,9 +1228,10 @@ def generate_textured_obj(
     path_prefix: str, surfaces, ortho_rgba: np.ndarray,
     origin_xy: Tuple[float, float], gsd: float,
 ) -> bool:
-    """OBJ + MTL + PNG textured mesh export (reference generateTexturedOBJ,
+    """OBJ + MTL + JPG textured mesh export (reference generateTexturedOBJ,
     ortho.cpp:2052-2260): UVs from the orthomosaic georeference. The texture
-    is a PNG, where the JAX package writes a JPEG through OpenCV."""
+    is the mosaic's first three channels written as ``cv2.imwrite`` writes
+    them, through the port's JPEG encoder."""
     mesh = None
     for s in surfaces:
         if s.mesh is not None and s.mesh.num_vertices > 0:
@@ -1238,11 +1240,11 @@ def generate_textured_obj(
     if mesh is None:
         return False
     h, w = ortho_rgba.shape[:2]
-    with open(path_prefix + ".png", "wb") as f:
-        f.write(encode_png(np.ascontiguousarray(ortho_rgba[..., :3])))
+    with open(path_prefix + ".jpg", "wb") as f:
+        f.write(encode_jpeg(ortho_rgba[..., :3]))
     name = path_prefix.split("/")[-1]
     with open(path_prefix + ".mtl", "w") as f:
-        f.write(f"newmtl ortho\nKa 1 1 1\nKd 1 1 1\nmap_Kd {name}.png\n")
+        f.write(f"newmtl ortho\nKa 1 1 1\nKd 1 1 1\nmap_Kd {name}.jpg\n")
     with open(path_prefix + ".obj", "w") as f:
         f.write(f"mtllib {name}.mtl\nusemtl ortho\n")
         for v in mesh.vertices:

@@ -300,27 +300,27 @@ def build_group_batch(builts: Sequence[BuiltProblem], shared_intrinsics: bool = 
     )
 
 
-def _restack(blk: BlockSpec, builts, field, rows: int):
-    """Group-stacked ``field`` ("weight" or a data key) of the family
-    ``blk.name``, read again from the builts' own blocks and padded to
-    ``rows``; zeros for a group without the family."""
-    like = blk.weight if field == "weight" else blk.data[field]
+def _restack(blk: BlockSpec, builts, key, rows: int):
+    """Group-stacked data ``key`` of the family ``blk.name``, read again from
+    the builts' own blocks and padded to ``rows``; zeros for a group without
+    the family."""
+    like = blk.data[key]
     out = []
     for b in builts:
         own = next((x for x in b.blocks if x.name == blk.name), None)
         if own is None:
             out.append(torch.zeros((rows,) + tuple(like.shape[2:]), dtype=like.dtype, device=like.device))
         else:
-            out.append(_pad_rows(own.weight if field == "weight" else own.data[field], rows))
+            out.append(_pad_rows(own.data[key], rows))
     return torch.stack(out)
 
 
 def refresh_group_batch(batch: GroupBatch) -> GroupBatch:
     """Stack again only what changes when the batch's builts had their values
     refreshed (``problem_builder.refresh_problem``): params, the free masks
-    (the intrinsics tiers live there), the mesh-anchor targets, and the
-    monotonicity prior's weight and ``r_max`` (its radial-tier switch). The
-    stacked measurement blocks are structure and carry over."""
+    (the intrinsics tiers live there) and the mesh-anchor targets. Every
+    other block carries over, as in the reference: the monotonicity prior
+    keeps the weight and ``r_max`` of the batch's first build."""
     layout, builts = batch.layout, batch.builts
     perms = batch.model_perms or [None] * len(builts)
     params = _stack_params([_pad_params(b.params, layout.C, layout.V, layout.P, layout.M) for b in builts])
@@ -330,9 +330,6 @@ def refresh_group_batch(batch: GroupBatch) -> GroupBatch:
         rows = blk.slots.shape[1]
         if blk.name == "mesh_anchor":
             blk = dataclasses.replace(blk, data=dict(blk.data, target=_restack(blk, builts, "target", rows)))
-        elif blk.name == "monotonicity":
-            blk = dataclasses.replace(blk, weight=_restack(blk, builts, "weight", rows),
-                                      data=dict(blk.data, r_max=_restack(blk, builts, "r_max", rows)))
         blocks.append(blk)
     return dataclasses.replace(batch, params=params, free=free, surface_free=surface_free, blocks=tuple(blocks))
 

@@ -18,14 +18,17 @@ colour-balanced blended orthomosaic, the camera-id raster and the textured
 OBJ where their paths are set (``ortho_path``, ``dsm_path``,
 ``camera_id_path``, ``textured_obj_prefix``), and pass through where not.
 DENSIFY_MESH and DENSE_MESH_RELAX are skipped by the default
-``skip_dense_mesh``; switched on they raise ``NotImplementedError`` naming
-their ROADMAP item. ``iterate_once`` returns "DONE" at COMPLETE.
+``skip_dense_mesh``; switched on, DENSIFY_MESH adds the dense stereo points to
+the first surface's cloud and DENSE_MESH_RELAX refines each mesh by point
+density over them. ``iterate_once`` returns "DONE" at COMPLETE.
 ``save_checkpoint`` / ``load_checkpoint`` write and read the state, the graph
 with its camera models, and the surfaces.
 
 The pipeline holds its device and the dtype of its relax problems
-explicitly: float32 on a GPU, float64 where a parity test holds it against
-the JAX package's x64 CPU run. Matching and RANSAC always run in float32.
+explicitly: float64 by default on every device, the precision of the JAX
+package's x64 CPU run that the parity tests hold the port to (the JAX
+package runs float32 only on the TPU, which has no float64); float32 on
+request. Matching and RANSAC always run in float32.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
 from opencalibration_tpu_torch.pipeline.stages import LinkStage, LoadStage, RelaxStage, refit_all_edges
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
 from opencalibration_tpu_torch.surface.mesh import build_minimal_mesh
-from opencalibration_tpu_torch.surface.refine import merge_surface_models, refine_by_point_density
+from opencalibration_tpu_torch.surface.refine import merge_surface_models, refine_by_point_density, refine_surfaces
 from opencalibration_tpu_torch.types.camera import CameraModel
 from opencalibration_tpu_torch.types.graph import MeasurementGraph, SurfaceModel
 from opencalibration_tpu_torch.utils.device import resolve_device
@@ -73,12 +76,6 @@ class PipelineState:
 RELAX_MAX_ITERATIONS = 5  # passes of a relax state
 FINAL_RELAX_MAX_ITERATIONS = 3  # FINAL_GLOBAL_RELAX: its last pass is one group
 
-# where each state not ported yet stands in ROADMAP.md (queue 1)
-_NOT_PORTED = {
-    PipelineState.DENSIFY_MESH: "queue 1, Slice D (dense stereo)",
-    PipelineState.DENSE_MESH_RELAX: "queue 1, Slice D (dense stereo)",
-}
-
 # stage weights for global progress
 _STAGE_WEIGHTS = {
     PipelineState.INITIAL_PROCESSING: 10.0,
@@ -94,6 +91,21 @@ _STAGE_WEIGHTS = {
     PipelineState.BLEND_LAYERS: 4.0,
     PipelineState.COMPLETE: 0.0,
 }
+
+
+def _thumbnail_encoder(path: str):
+    """The image writer for ``path`` by its extension, as ``cv2.imwrite``
+    picks it: PNG keeps the alpha channel, JPEG drops it."""
+    ext = path.lower().rsplit(".", 1)[-1]
+    if ext == "png":
+        from opencalibration_tpu_torch.io.png import encode_png
+
+        return encode_png
+    if ext in ("jpg", "jpeg"):
+        from opencalibration_tpu_torch.io.jpeg import encode_jpeg
+
+        return lambda rgba: encode_jpeg(rgba[..., :3])
+    raise ValueError(f"thumbnail_path {path!r}: the thumbnail is written as .png, .jpg or .jpeg")
 
 
 @dataclasses.dataclass
@@ -117,7 +129,7 @@ class StepCompletionInfo:
 
 class Pipeline:
     def __init__(self, batch_size: int = 10, parallelism: int = 8, *, device="cuda",
-                 dtype=torch.float32, ransac_uniforms=None):
+                 dtype=torch.float64, ransac_uniforms=None):
         """``device`` is the card unless the caller asks for ``"cpu"``; a CUDA
         device without a card raises, and ``None`` is an error. ``dtype`` is
         the relax problems' float type. ``ransac_uniforms`` [2048, 4]
@@ -168,6 +180,7 @@ class Pipeline:
         self.generate_thumbnails = True
         self.thumbnail_mosaic = None
         self._ortho_job = None
+        self.dense_stats: dict = {}  # DENSIFY_MESH's counts and matcher time
 
     # --- public API -------------------------------------------------------
     def add(self, paths: Sequence[str]):
@@ -218,8 +231,7 @@ class Pipeline:
         return self._state
 
     def run_to_completion(self, max_iterations: int = 10000) -> str:
-        """Iterate to COMPLETE; raises at a state not ported yet (the dense
-        mesh states, where ``skip_dense_mesh`` is off)."""
+        """Iterate to COMPLETE (at most ``max_iterations`` calls)."""
         for _ in range(max_iterations):
             if self._state == PipelineState.COMPLETE:
                 break
@@ -484,30 +496,32 @@ class Pipeline:
         if self.generate_thumbnails and self.surfaces:
             from opencalibration_tpu_torch.ortho.ortho import generate_orthomosaic
 
-            if self.thumbnail_path and not self.thumbnail_path.lower().endswith(".png"):
-                raise NotImplementedError(
-                    f"thumbnail_path {self.thumbnail_path!r}: only .png is written without "
-                    "OpenCV (ROADMAP queue 1, B8b: image codecs)"
-                )
+            encode = _thumbnail_encoder(self.thumbnail_path) if self.thumbnail_path else None
             self.thumbnail_mosaic = generate_orthomosaic(
                 self.surfaces, self.graph, self.model_store, device=self.device
             )
-            if self.thumbnail_mosaic is not None and self.thumbnail_path:
-                from opencalibration_tpu_torch.io.png import encode_png
-
+            if self.thumbnail_mosaic is not None and encode is not None:
                 with open(self.thumbnail_path, "wb") as f:
-                    f.write(encode_png(self.thumbnail_mosaic.rgba))
+                    f.write(encode(self.thumbnail_mosaic.rgba))
         self._emit([], [], [], "thumbnail")
         return "NEXT"
 
     def _run_densify_mesh(self) -> str:
         if self.skip_dense_mesh:
             return "NEXT"
-        raise NotImplementedError(
-            f"pipeline state {self._state} is not ported yet: ROADMAP {_NOT_PORTED[self._state]}"
-        )
+        from opencalibration_tpu_torch.dense.dense_stereo import densify_mesh
 
-    _run_dense_mesh_relax = _run_densify_mesh
+        self.dense_stats = {}
+        densify_mesh(self.graph, self.model_store, self.surfaces, device=self.device, stats=self.dense_stats)
+        self._emit([], [], [], "densify", surfaces_updated=True)
+        return "NEXT"
+
+    def _run_dense_mesh_relax(self) -> str:
+        if self.skip_dense_mesh:
+            return "NEXT"
+        self.surfaces = refine_surfaces(self.surfaces)
+        self._emit([], [], [], "dense mesh relax", surfaces_updated=True)
+        return "NEXT"
 
     def _wants_ortho(self) -> bool:
         return bool(self.ortho_path or self.textured_obj_prefix or self.dsm_path)

@@ -6,8 +6,8 @@ JAX).
 Image size, focal length and texture size are parameters; the defaults are
 the JAX fixture's. Scaling all three together keeps the ground footprint and
 the overlap of every image. ``write_survey`` writes 8-bit binary PGM files,
-or with ``color=True`` binary PPM files, both of which the port decodes
-without OpenCV, each with the JSON sidecar geotag the pipeline reads. A colour
+or with ``color=True`` binary PPM files, or with ``fmt="jpg"`` JPEG files
+(quality 95), all of which the port decodes without OpenCV, each with the JSON sidecar geotag the pipeline reads. A colour
 survey keeps the gray survey's luminance and tints it with a low-frequency
 chroma texture; an optional per-image exposure gain gives the orthomosaic's
 colour balance something to flatten.
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
+from opencalibration_tpu_torch.io.jpeg import encode_jpeg
 from opencalibration_tpu_torch.ops import distort as D
 from opencalibration_tpu_torch.ops.features import _bilinear
 from opencalibration_tpu_torch.ops.quaternion import (
@@ -39,6 +40,7 @@ IMG_W, IMG_H = 320, 240
 FOCAL = 400.0
 ALTITUDE = 60.0
 TEXTURE_SIZE = 512
+JPEG_QUALITY = 95
 
 
 def make_texture(seed=0, size=TEXTURE_SIZE):
@@ -206,7 +208,7 @@ def write_ppm(path, rgb: np.ndarray):
 
 def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W, height=IMG_H,
                  focal=FOCAL, focal_px_tag=None, texture=None, relief_amplitude=0.0, relief_wavelength=70.0,
-                 alt_pattern="row", color=False, gains=None, device):
+                 alt_pattern="row", color=False, gains=None, fmt="netpbm", device):
     """Render the survey and write ``IMG_<i>.pgm`` files with JSON sidecars
     (latitude, longitude, altitude, focal_length_px, camera make and model)
     into ``directory``. The texture spans the survey's footprint plus 60 m;
@@ -217,8 +219,12 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
     one gives the intrinsics calibration something to recover. ``color=True``
     writes ``IMG_<i>.ppm`` instead: the same luminance tinted by
     ``make_chroma(seed)`` through ``colorize``, each image multiplied by its
-    entry of ``gains`` (e.g. ``survey_gains``) where given. Returns
-    (paths, positions, quats)."""
+    entry of ``gains`` (e.g. ``survey_gains``) where given. ``fmt="jpg"``
+    writes ``IMG_<i>.jpg`` through the port's JPEG encoder at quality 95
+    (one component for gray, 4:2:0 colour) instead of Netpbm. Returns (paths,
+    positions, quats)."""
+    if fmt not in ("netpbm", "jpg"):
+        raise ValueError(f"write_survey writes fmt 'netpbm' or 'jpg', not {fmt!r}")
     positions, quats = camera_grid(rows, cols, spacing, seed + 1, alt_pattern)
     extent = survey_extent(positions)
     if texture is None:
@@ -236,8 +242,13 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
             views = np.clip(views * np.asarray(gains, np.float32)[:, None, None, None], 0, 1)
     paths = []
     for i, img in enumerate((views * 255).astype(np.uint8)):
-        path = os.path.join(directory, f"IMG_{i:04d}." + ("ppm" if color else "pgm"))
-        (write_ppm if color else write_pgm)(path, img)
+        if fmt == "jpg":
+            path = os.path.join(directory, f"IMG_{i:04d}.jpg")
+            with open(path, "wb") as f:
+                f.write(encode_jpeg(img[..., ::-1] if color else img, JPEG_QUALITY))
+        else:
+            path = os.path.join(directory, f"IMG_{i:04d}." + ("ppm" if color else "pgm"))
+            (write_ppm if color else write_pgm)(path, img)
         lat, lon, _ = geo.to_wgs84(positions[i])
         with open(os.path.splitext(path)[0] + ".json", "w") as f:
             json.dump(dict(

@@ -61,6 +61,12 @@ def get_timer_total(key: str) -> float:
         return _totals.get(key, 0.0)
 
 
+def get_timer_count(key: str) -> int:
+    """How many scopes of one key were measured (0 if never measured)."""
+    with _lock:
+        return _counts.get(key, 0)
+
+
 class PerformanceMeasure:
     """Context-manager scope timer (RAII equivalent). Supports reset() to
     re-key mid-scope like the reference's PerformanceMeasure::reset."""

@@ -163,9 +163,18 @@ def test_png_rejects_what_it_does_not_read():
         encode_png(np.zeros((2, 2), np.float32))
     with pytest.raises(ValueError, match="channels"):
         encode_png(np.zeros((2, 2, 2), np.uint8))
-    ok, buf = cv2.imencode(".png", np.zeros((4, 4), np.uint16))
-    with pytest.raises(ValueError, match="8-bit"):
-        decode_png(buf.tobytes())
+    # a 16-bit file decodes as IMREAD_UNCHANGED gives it; an interlaced one raises
+    arr = (np.arange(4 * 6 * 3).reshape(4, 6, 3) * 911 % 65536).astype(np.uint16)
+    for a in (arr, arr[..., 0]):
+        ok, buf = cv2.imencode(".png", a)
+        np.testing.assert_array_equal(decode_png(buf.tobytes()), cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+    import struct
+    import zlib
+
+    chunk = lambda k, d: struct.pack(">I", len(d)) + k + d + struct.pack(">I", zlib.crc32(k + d))  # noqa: E731
+    interlaced = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)) + chunk(b"IEND", b"")
+    with pytest.raises(ValueError, match="non-interlaced"):
+        decode_png(interlaced)
 
 
 @pytest.fixture(scope="module")

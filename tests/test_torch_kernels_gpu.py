@@ -388,3 +388,72 @@ def test_ortho_tail_runs_are_reproducible_on_the_cpu(tmp_path, one_thread):
     assert out["rgba_equal_share"] == 1.0 and out["balance_max_abs"] == 0.0 and out["correspondences"] > 50
     median, share = ortho_cases.median_l_error(a["ortho_path"], state["positions"])
     assert share > 0.6 and median <= 8.0
+
+
+def _gated_case(seed, n1=2048, n2=2048):
+    """Set 1 near copies of set 2 with duplicated columns (ties), predictions
+    around the true positions, some far from every candidate."""
+    rng = np.random.default_rng(seed)
+    w2 = _words(rng, (n2,), garbage_padding=False)
+    w2[1::7] = w2[0::7][: len(w2[1::7])]
+    src = torch.from_numpy(rng.integers(0, n2, n1))
+    w1 = _near_copies(rng, w2[src], 0.05)
+    xy2 = torch.from_numpy(rng.uniform(0, 1600, (n2, 2)).astype(np.float32))
+    pred = xy2[src] + torch.from_numpy(rng.normal(0, 40, (n1, 2)).astype(np.float32))
+    pred[::11] = 9000.0
+    v1 = torch.from_numpy(rng.random(n1) > 0.05)
+    v2 = torch.from_numpy(rng.random(n2) > 0.05)
+    xy1 = torch.from_numpy(rng.uniform(0, 1600, (n1, 2)).astype(np.float32))
+    return w1, xy1, v1, w2, xy2, v2, pred
+
+
+@pytest.mark.gpu
+def test_gated_match_cuda_matches_cpu(cuda):
+    """The dense matcher on the card equals the CPU bit for bit (idx, best,
+    good): integer distances from a float32 product with TF32 off."""
+    from opencalibration_tpu_torch.dense.dense_stereo import gated_match
+
+    args = _gated_case(0)
+    want = gated_match(*args)
+    got = gated_match(*(a.to(cuda) for a in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert 0 < int(want[2].sum()) < len(want[2])
+
+
+def _dense_entry(directory):
+    """The 2 x 3 ground-truth state with each node's features its own dense
+    set, extracted on the CPU, and those sets."""
+    from opencalibration_tpu_torch.dense.dense_stereo import extract_dense_featuresets
+    from opencalibration_tpu_torch.testing import ortho_cases
+
+    state = ortho_cases.ground_truth_state(directory)
+    graph = state["graph"]
+    dense = extract_dense_featuresets(graph, [nid for nid, _ in sorted(graph.nodes())], device="cpu")
+    for nid, node in graph.nodes():
+        node.payload.features = dense[nid]
+    return state, dense
+
+
+@pytest.mark.gpu
+def test_densify_mesh_cuda_matches_cpu(cuda, tmp_path):
+    """densify_mesh from one state and one set of dense features on the card
+    and on the CPU, float64 geometry on both: the same point count, the
+    points within 1e-9 m."""
+    import copy
+
+    from opencalibration_tpu_torch.dense.dense_stereo import densify_mesh
+
+    state, dense = _dense_entry(str(tmp_path))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        surfaces = copy.deepcopy(state["surfaces"])
+        stats = {}
+        n = densify_mesh(state["graph"], state["model_store"], surfaces, dense_features=dense, device=dev,
+                         stats=stats)
+        out[dev] = (n, surfaces[0].cloud[-1], stats)
+    (n_c, pts_c, _), (n_g, pts_g, stats) = out["cpu"], out["cuda"]
+    print(f"densify_mesh: {n_g} points on the card, {n_c} on the CPU; {stats['pairs']} pairs, "
+          f"gated_match {1e3 * stats['match_seconds'] / stats['pairs']:.3f} ms a pair")
+    assert n_g == n_c > 50
+    np.testing.assert_allclose(pts_g, pts_c, rtol=0, atol=1e-9)

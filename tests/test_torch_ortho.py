@@ -224,10 +224,19 @@ def test_textured_obj(state, tmp_path):
     assert TO.generate_textured_obj(str(tmp_path / "got"), t_state[0], rgba, (3.0, 90.0), 0.5)
     text = lambda n: open(str(tmp_path / n)).read()  # noqa: E731
     assert text("got.obj").replace("got.mtl", "ref.mtl") == text("ref.obj")
-    assert text("got.mtl").replace("got.png", "ref.jpg") == text("ref.mtl")
-    from opencalibration_tpu_torch.io.png import decode_png
+    assert text("got.mtl").replace("got.jpg", "ref.jpg") == text("ref.mtl")
+    import cv2
 
-    np.testing.assert_array_equal(decode_png(open(str(tmp_path / "got.png"), "rb").read()), rgba[..., :3])
+    from opencalibration_tpu_torch.io.jpeg import decode_jpeg
+
+    got, ref = (open(str(tmp_path / n), "rb").read() for n in ("got.jpg", "ref.jpg"))
+    assert got == ref  # the bytes cv2.imwrite writes
+    tex = decode_jpeg(got)
+    np.testing.assert_array_equal(tex, cv2.imread(str(tmp_path / "ref.jpg"), cv2.IMREAD_COLOR))
+    # noise at quality 95 over 4:2:0: the chroma halves the resolution, so the
+    # bound is on the gray the encoder keeps at full resolution
+    gray = lambda im: im.astype(float) @ [0.114, 0.587, 0.299]  # noqa: E731
+    assert np.abs(gray(tex) - gray(rgba[..., :3])).mean() < 4.0
 
 
 def test_generate_ortho_geotiff_and_device_rule(state, tmp_path):

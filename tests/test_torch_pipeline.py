@@ -154,11 +154,12 @@ def test_later_states_raise_and_device_is_required():
     # the ortho tail is ported: with no output path set it is passed through
     assert p.run_to_completion() == PipelineState.COMPLETE
     assert p.iterate_once() == "DONE" and p.state_run_count() == 0
-    # the dense-mesh states are not, and say where they stand when switched on
+    # so are the dense-mesh states: switched on, they run (with no mesh, nothing is densified)
     p.reset_state(PipelineState.DENSIFY_MESH)
     p.skip_dense_mesh = False
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        p.run_to_completion()
+    assert p.iterate_once() == PipelineState.DENSE_MESH_RELAX and p.dense_stats == {}
+    assert p.iterate_once() == PipelineState.GENERATE_LAYERS
+    assert p.run_to_completion() == PipelineState.COMPLETE
     p.skip_dense_mesh = True
     # and it is passed at once when skipped
     p.reset_state(PipelineState.CAMERA_PARAMETER_RELAX)

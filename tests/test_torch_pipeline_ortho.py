@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from opencalibration_tpu_torch.io import geotiff
+from opencalibration_tpu_torch.io.jpeg import decode_jpeg, encode_jpeg
 from opencalibration_tpu_torch.io.png import decode_png
 from opencalibration_tpu_torch.pipeline.pipeline import PipelineState
 from opencalibration_tpu_torch.testing import ortho_cases
@@ -46,6 +47,7 @@ _CODE = """
     sys.modules["jax"] = None  # any import of jax raises
     sys.modules["opencalibration_tpu"] = None  # and of the JAX package (not the port's prefix)
     sys.modules["cv2"] = None  # and of OpenCV
+    sys.modules["PIL"] = None  # and of PIL
     import numpy as np
     from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
     from opencalibration_tpu_torch.testing import ortho_cases, survey
@@ -87,20 +89,25 @@ _CODE = """
     bare = entry_state()
     bare_states, bare_last, _ = drive(bare)
 
+    as_jpg = entry_state()
+    as_jpg.thumbnail_path = os.path.join(out, "thumb.jpg")
+    as_jpg.iterate_once()
+
     wrong = entry_state()
-    wrong.thumbnail_path = os.path.join(out, "thumb.jpg")
+    wrong.thumbnail_path = os.path.join(out, "thumb.bmp")
     try:
         wrong.iterate_once()
         refused = ""
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
 
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu", "cv2") and sys.modules[m])
+                    if m.split(".")[0] in ("jax", "jaxlib", "opencalibration_tpu", "cv2", "PIL") and sys.modules[m])
     print(json.dumps(dict(
         states=states, last=last, final_state=p.get_state(), run_count=p.state_run_count(),
         bare_states=bare_states, bare_last=bare_last, bare_mosaic=bare.thumbnail_mosaic is not None,
         bare_job=bare._ortho_job is not None, refused=refused, loaded=loaded,
+        wrote_bmp=os.path.exists(os.path.join(out, "thumb.bmp")),
         node_ids=[int(n) for n, _ in p.graph.nodes()],
         thumbs=[list(n.payload.thumbnail.shape) for _, n in p.graph.nodes()],
         mosaic_shape=list(p.thumbnail_mosaic.rgba.shape), mosaic_gsd=p.thumbnail_mosaic.gsd,
@@ -139,7 +146,7 @@ def test_without_output_paths_the_states_pass_through(run):
     _, info = run
     assert info["bare_states"] == info["states"] and info["bare_last"] == "DONE"
     assert info["bare_mosaic"] and not info["bare_job"]  # the thumbnail mosaic is made, no ortho job
-    assert "B8b" in info["refused"] and ".png" in info["refused"]
+    assert ".bmp" in info["refused"] and ".jpg" in info["refused"] and not info["wrote_bmp"]
 
 
 def test_no_jax_no_opencv(run):
@@ -154,6 +161,10 @@ def test_thumbnails_and_thumbnail_mosaic(run):
     assert list(png.shape) == info["mosaic_shape"] and png.shape[2] == 4
     assert (png[..., 3] == 255).mean() > COVERED_SHARE
     assert 0.5 < info["mosaic_gsd"] < 2.0
+    # the same mosaic as a .jpg: its colour channels through the JPEG encoder
+    jpg = decode_jpeg(open(os.path.join(out, "thumb.jpg"), "rb").read())
+    assert jpg.shape == png.shape[:2] + (3,)
+    assert open(os.path.join(out, "thumb.jpg"), "rb").read() == encode_jpeg(png[..., :3])
 
 
 def test_orthomosaic_geotiff(run):
@@ -207,6 +218,12 @@ def test_textured_obj(run):
     obj = open(os.path.join(out, "model.obj")).read().splitlines()
     assert obj[0] == "mtllib model.mtl" and sum(line.startswith("v ") for line in obj) == 9
     assert sum(line.startswith("f ") for line in obj) == 8
-    assert "map_Kd model.png" in open(os.path.join(out, "model.mtl")).read()
-    tex = decode_png(open(os.path.join(out, "model.png"), "rb").read())
-    np.testing.assert_array_equal(tex, geotiff.read_geotiff(os.path.join(out, "ortho.tif"))[0][..., :3])
+    assert "map_Kd model.jpg" in open(os.path.join(out, "model.mtl")).read()
+    data = open(os.path.join(out, "model.jpg"), "rb").read()
+    mosaic = geotiff.read_geotiff(os.path.join(out, "ortho.tif"))[0][..., :3]
+    assert data == encode_jpeg(mosaic)  # quality 95, as cv2.imwrite writes it
+    tex = decode_jpeg(data)
+    assert tex.shape == mosaic.shape
+    # quality 95 over 4:2:0: the texture stays within a few levels where the
+    # mosaic is smooth (its covered interior)
+    assert np.median(np.abs(tex.astype(int) - mosaic.astype(int))) <= 2

@@ -236,8 +236,9 @@ def test_shared_solve_of_the_mesh_problem_matches_reference(survey, tier):
 def test_refreshed_batch_equals_rebuilt_batch(survey):
     """A cached batch whose builts were refreshed under a later tier (moved
     poses, heights and models) restacks to what a batch built from equally
-    refreshed, never batched builts gives, and warm-starts from the previous
-    solve's dampings."""
+    refreshed, never batched builts gives, but for the monotonicity prior,
+    which keeps its first build's weight and ``r_max`` as in the reference;
+    and it warm-starts from the previous solve's dampings."""
     graph, ids, j_models, groups, previous = survey
     _, cached = _builts(survey, 0)
     fresh = copy.deepcopy(cached)
@@ -278,17 +279,17 @@ def test_refreshed_batch_equals_rebuilt_batch(survey):
 
     for f in FIELDS:
         assert same(refreshed.params, rebuilt.params, f), f
-    for a, b in zip(refreshed.blocks, rebuilt.blocks):
-        assert a.name == b.name and torch.equal(a.slots, b.slots) and torch.equal(a.weight, b.weight), a.name
+    for a, b, c in zip(refreshed.blocks, rebuilt.blocks, batch.blocks):
+        assert a.name == b.name and torch.equal(a.slots, b.slots), a.name
+        if a.name == "monotonicity":  # carried over from the cached batch
+            assert torch.equal(a.weight, c.weight) and torch.equal(a.data["r_max"], c.data["r_max"])
+            assert float(a.weight.sum()) == 0.0 and float(b.weight.sum()) == 3.0  # the tier's switch, not restacked
+            continue
+        assert torch.equal(a.weight, b.weight), a.name
         for k in a.data:
-            # a batched built keeps its blocks' local model slots beside the global index, so a
-            # refresh finds the focal behind r_max only where the two agree (group A; in the
-            # pipeline every group lists the whole store and they always agree)
-            held = slice(0, 1) if (a.name, k) == ("monotonicity", "r_max") else slice(None)
-            assert torch.equal(a.data[k][held], b.data[k][held]), f"{a.name}.{k}"
-    mono = next(b for b in refreshed.blocks if b.name == "monotonicity")
-    assert float(mono.weight.sum()) == 3.0  # switched on by the tier: two models in group A, one in group B
+            assert torch.equal(a.data[k], b.data[k]), f"{a.name}.{k}"
     # equal batches solve alike; the warm start (clipped into [1e-6, 1e2]) is used
+    rebuilt.blocks = tuple(a if a.name == "monotonicity" else b for a, b in zip(refreshed.blocks, rebuilt.blocks))
     rebuilt.warm_lambda = batch.warm_lambda
     a, info_a = TGS.solve_group_batch_shared(refreshed, pre_solve=False, max_iterations=5)
     b, info_b = TGS.solve_group_batch_shared(rebuilt, pre_solve=False, max_iterations=5)
@@ -299,6 +300,54 @@ def test_refreshed_batch_equals_rebuilt_batch(survey):
     _, info_c = TGS.solve_group_batch_shared(cold, pre_solve=False, max_iterations=1)
     _, info_w = TGS.solve_group_batch_shared(rebuilt, pre_solve=False, max_iterations=1)
     assert float(info_c.final_lambda) != float(info_w.final_lambda)
+
+
+FOLDED_RADIAL = (-2.0, 0.0, 0.0)  # 1 + 3 k1 r^2 < 0 from r = 0.41, inside r_max = 0.5 (320 x 240 at f 400)
+REFRESH_REL = 1e-9
+
+
+def test_refresh_keeps_the_monotonicity_prior_of_the_first_build_as_the_reference(survey):
+    """One refresh and one solve of a two-group batch against the JAX
+    package's, in float64. The batch is built at the focal tier (prior
+    weight 0), refreshed under the second radial tier (which switches the
+    prior on in a fresh build) and solved from a radial polynomial that folds
+    inside the image, where a restacked prior would not be zero. The
+    reference restacks only the mesh-anchor targets, so its prior stays off;
+    so does the port's."""
+    graph, ids, j_models, groups, previous = survey
+    j_builts, t_builts = _builts(survey, 0)
+    j_batch = JGS.build_group_batch(j_builts, shared_intrinsics=True)
+    t_batch = TGS.build_group_batch(t_builts, shared_intrinsics=True)
+    moved = {mid: m.replace(focal_length_pixels=m.focal_length_pixels * 1.01) for mid, m in j_models.items()}
+    t_models, t_graph = interop.model_store_from(moved), interop.graph_from(graph)
+    opts_j = JPB.RelaxOptions(orientation=True, ground_mesh=True, grid_fraction=0.1, **TIERS[2])
+    opts_t = interop.relax_options_from(opts_j)
+    for jb, tb, (node_ids, mids, _) in zip(j_builts, t_builts, groups):
+        assert JPB.refresh_problem(jb, graph, _node_poses(graph, node_ids, JG), {m: moved[m] for m in mids},
+                                   previous, opts_j)
+        assert TPB.refresh_problem(tb, t_graph, _node_poses(t_graph, node_ids, TG), {m: t_models[m] for m in mids},
+                                   [interop.surface_from(p) for p in previous], opts_t)
+    j_ref, t_ref = JGS.refresh_group_batch(j_batch), TGS.refresh_group_batch(t_batch)
+    _assert_same_batch(t_ref, j_ref)
+    mono = next(b for b in t_ref.blocks if b.name == "monotonicity")
+    assert float(mono.weight.sum()) == 0.0  # the first build's switch
+    restacked = next(b for b in TGS.build_group_batch(copy.deepcopy(t_builts), shared_intrinsics=True).blocks
+                     if b.name == "monotonicity")
+    assert float(restacked.weight.sum()) == 3.0  # a fresh build at this tier switches it on
+
+    # one solve each from the same parameters, the radial terms folded
+    radial = np.broadcast_to(np.asarray(FOLDED_RADIAL), np.asarray(j_ref.params.radial).shape).copy()
+    j_ref.params = dataclasses.replace(j_ref.params, radial=jnp.asarray(radial))
+    t_ref.params = interop.relax_params_from(j_ref.params, "cpu")
+    assert float(TLM.block_cost(TGS._group(t_ref.params, 0), TGS._group(restacked, 0))) > 0  # restacked, it bites
+    j_solved, j_info = JGS.solve_group_batch_shared(j_ref, pre_solve=False, max_iterations=1)
+    t_solved, t_info = TGS.solve_group_batch_shared(t_ref, pre_solve=False, max_iterations=1)
+    got, want = _solved_numpy(TGS.fetch_solved(t_solved)), _solved_numpy(JGS.fetch_solved(j_solved))
+    for f in FIELDS:
+        np.testing.assert_allclose(got[f], want[f], rtol=REFRESH_REL, atol=REFRESH_REL, err_msg=f)
+    np.testing.assert_allclose(float(t_info.final_cost), float(np.ravel(np.asarray(j_info.final_cost))[0]),
+                               rtol=REFRESH_REL)
+    assert not np.array_equal(got["quats"], np.asarray(t_ref.params.quats))  # the step moved
 
 
 # ---------------------------------------------------------------------------

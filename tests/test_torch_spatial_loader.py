@@ -141,10 +141,20 @@ def test_unreadable_and_undecodable_files(tmp_path, monkeypatch):
     cv2.imwrite(jpg, img)
     TSv.write_pgm(pgm, img)
     assert TL.load_and_decode(jpg) is not None
+    want = cv2.cvtColor(cv2.imread(jpg, cv2.IMREAD_COLOR), cv2.COLOR_BGR2GRAY)
     monkeypatch.setitem(sys.modules, "cv2", None)  # a machine without OpenCV
-    with pytest.raises(ImportError, match="cv2"):
-        TL.load_and_decode(jpg)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    # the JPEG decodes through the port's own codec, equal to cv2's decode
+    np.testing.assert_array_equal(TL.load_and_decode(jpg).gray, want)
     np.testing.assert_array_equal(TL.load_and_decode(pgm).gray, img)
+    tif = str(tmp_path / "a.tif")  # the formats left still need cv2
+    with open(tif, "wb") as f:
+        f.write(b"II*\x00" + bytes(16))
+    with pytest.raises(ImportError, match="cv2"):
+        TL.load_and_decode(tif)
+    with open(str(tmp_path / "bad.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0\x00")  # truncated: unreadable, skipped
+    assert TL.load_and_decode(str(tmp_path / "bad.jpg")) is None
 
 
 def test_sparse_masks_and_feature_sets_match_reference():
