@@ -27,26 +27,40 @@ Phases, each printing its lines:
    CPU, on a 2 x 3 PGM survey at 320 x 240 with ``batch_size=3``: equal
    nodes and edges, orientations within 0.1 degrees, the Hamming kernel
    launched and bit-exact on the link's own descriptors;
-7. INITIAL_PROCESSING at full size with the pipeline's defaults: 24 PGM
-   images at 1600 x 1200 in batches of 10; seconds per ``iterate_once``, the
-   stage counters, nodes / edges / groups, LM iterations, peak memory, kernel
-   launches, the kernel against its plain version on one link chunk, and the
-   orientation error against the scene's ground truth;
+7. the pipeline on a flat survey past one pose group: 56 PGM images (7 x 8,
+   12 m apart) at 1600 x 1200 with the pipeline's defaults, from
+   INITIAL_PROCESSING (seconds per ``iterate_once``, the stage counters,
+   nodes / edges / groups, peak memory, kernel launches, the kernel against
+   its plain version on one link chunk, the orientation error: median 2
+   degrees, and every camera beyond 5 degrees one that its last relax
+   co-optimised as a halo camera held by the downwards prior alone, whose
+   heading no residual reaches, as the JAX package does with it) through
+   MESH_REFINEMENT and FINAL_GLOBAL_RELAX with the camera parameters
+   skipped. Every relax pass of two pose groups or more is one batched
+   solve (``solve_group_batch``); per pass the groups, their bucketed lanes,
+   each group's tangent dimension, the batch's T and route, the LM
+   iterations per lane and the seconds, then plan reuses, peak memory and the
+   counters. Checked: every MESH_REFINEMENT pass is one batched solve of at
+   least 2 groups; FINAL_GLOBAL_RELAX reuses its plan; orientations against
+   the truth (median 2, maximum 5 degrees); the mesh's surface against the
+   flat ground over the camera footprint (1 m, 4 m); the last
+   MESH_REFINEMENT batch solved again on the card by ``solve_groups`` (one
+   group after another) within 1e-4 rad and 1e-4 m of the batched result and
+   by ``solve_group_batch`` once more, bit for bit; one lane of it solved by
+   the dense and the matrix-free linear solvers (their difference and time
+   per LM iteration) and by the matrix-free one twice, bit for bit;
 8. a 9-image survey (3 x 3 at 320 x 240; the full image size over this
    relief is phase 9's) rendered over terrain with
    8 m of sinusoidal relief (70 m wavelength), driven from
-   INITIAL_PROCESSING through
-   MESH_REFINEMENT, INITIAL_GLOBAL_RELAX (skipped by default),
-   CAMERA_PARAMETER_RELAX (skipped) and FINAL_GLOBAL_RELAX to
-   GENERATE_THUMBNAIL: seconds per ``iterate_once`` and per state, mesh
+   INITIAL_PROCESSING through MESH_REFINEMENT to the entry of
+   CAMERA_PARAMETER_RELAX (cut there for time; phase 10 starts from that
+   state): seconds per ``iterate_once`` and per state, mesh
    vertices and triangles and the grid level after every pass, every
-   solve's tangent dimension and route, LM iterations, plan reuses, peak
+   solve's tangent dimension and route, LM iterations, peak
    memory, the stage counters, the orientation error after
    INITIAL_PROCESSING (printed; the ground-plane relax cannot follow the
    relief) and at the end (bounded), and the final mesh's height error
-   against the relief; then the last full problem solved with the dense and
-   the matrix-free linear solvers on the card (their difference and time per
-   LM iteration), and the matrix-free solve run twice, bit for bit;
+   against the relief;
 9. the whole pipeline at full size, the main path: the 24-image survey over
    the same relief, written in colour as JPEG (quality 95, the port's own
    encoder) with a seeded +-10 % exposure gain per image, its geotags' focal
@@ -103,12 +117,35 @@ Phases, each printing its lines:
    on a 2 x 3 JPEG survey at 320 x 240 over the relief, with every flag of
    the JAX package's tests/test_cli.py and ``--dense-mesh 1``: exit 0, the
    reference's 14 artifacts, the graph JSON and the checkpoint read back,
-   and ``extract_camera_db`` run on the checkpoint writing its focal.
+   and ``extract_camera_db`` run on the checkpoint writing its focal;
+13. the library's entry points that no pipeline state calls, on the card
+   against the CPU: ``extract_features(diffusion="fed")`` on a 400 x 300 crop
+   of two phase-7 images (equal keypoint counts, 99 % within 0.01 px,
+   99.5 % of the descriptor bits equal where the keypoints are), then at
+   1600 x 1200 on the
+   card alone (time, keypoints, peak memory); ``ransac`` at 2048
+   correspondences and 2048 hypotheses on the same uniforms: "fundamental"
+   on two scenes with 15 % outliers (models equal up to sign within 1e-4,
+   inlier flags 99.5 % equal, scores within 1 %), "essential" on the same
+   scenes held to their truth (the precision of its inliers 0.98: a 5-point
+   hypothesis is a vector of a 4-dimensional null space that each device's
+   eigen solver picks its own way) and on the first scene without outliers
+   to the CPU (flags and scores as above) and to the true essential matrix
+   (1e-2); DEGENSAC from a plane-degenerate fundamental matrix of a scene
+   with 85 % of its points on one plane, where it must fire on both devices
+   (decision equal, models within 1e-4 up to sign, flags 99.5 % equal);
+   ``relax`` with ``points_3d`` on phase 6's 2 x 3 survey by its own route
+   (CG: orientations within 0.1 degrees, points within 5e-3 m, its steps
+   are inexact) and by the dense route (within 1e-6 degrees and 1e-6 m);
+   ``save_reference_graph`` of phase 7's final graph and
+   ``load_reference_graph`` (equal ids, descriptors bit for bit, poses within
+   1e-12, the file's size).
 
 The ``kernels`` line gives each kernel's launches on the main path, phase 9
 (INITIAL_PROCESSING through the camera parameters, the dense mesh and the
 ortho tail to COMPLETE), and on the paths of phases 12 (counted in the
-runner's own process), 8, 7 and 5, each taken with the counter set to 0
+runner's own process), 8, 7 (INITIAL_PROCESSING to the end of
+FINAL_GLOBAL_RELAX) and 5, each taken with the counter set to 0
 just before the path and read just after it, and phase 3's times and bounds
 (``*_link`` at the link's shape). Run from the repository root with
 ``python3 chip_smoke.py`` (``--phases 2,9`` runs a subset and prints neither
@@ -137,6 +174,7 @@ from opencalibration_tpu_torch.dense import dense_stereo as DS
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
 from opencalibration_tpu_torch.ops import hamming_cuda
+from opencalibration_tpu_torch.ops import models as M
 from opencalibration_tpu_torch.ops import ransac as R
 from opencalibration_tpu_torch.ops.quaternion import quat_angle, quat_conjugate, quat_multiply
 from opencalibration_tpu_torch.parallel import group_solver as GS
@@ -145,6 +183,7 @@ from opencalibration_tpu_torch.pipeline import stages as ST
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from opencalibration_tpu_torch.relax import lm as LM
 from opencalibration_tpu_torch.relax.problem_builder import RelaxOptions
+from opencalibration_tpu_torch.relax.tangent import FIELDS
 from opencalibration_tpu_torch.io import geotiff
 from opencalibration_tpu_torch.io.jpeg import decode_jpeg
 from opencalibration_tpu_torch.ortho.color_balance import solve_color_balance
@@ -162,6 +201,9 @@ FULL = dict(rows=4, cols=6, width=1600, height=1200, focal=2000.0, texture=2560,
             max_features=2048)
 # phase 8's smaller survey: the same images, half as many
 MESH = dict(SMALL, rows=3, cols=3)
+# phase 7's survey: a near-square grid just past POSE_GROUP_SIZE images, so
+# every multi-group relax pass splits it into two pose groups
+MULTI = dict(FULL, rows=7, cols=8)
 SPACING = 12.0
 NUM_HYPOTHESES = 2048
 MAX_ITERATIONS = 50
@@ -175,6 +217,9 @@ RELIEF_M, RELIEF_WAVELENGTH_M = 8.0, 70.0
 # final mesh heights against the relief, at the vertices inside the camera
 # footprint (the mesh is a coarse piecewise-linear fit of an 8 m sinusoid)
 HEIGHT_MEDIAN_M, HEIGHT_MAX_M = 1.0, 4.0
+# the serial group solve against the batched one: the reference's own floor
+# between its serial and batched paths
+SERIAL_RAD, SERIAL_M = 1e-4, 1e-4
 # the matrix-free step against the dense one on the last full problem: the CG
 # step is inexact (rtol 1e-2), so the two solves take different paths
 CG_VS_CHOLESKY_DEG, CG_VS_CHOLESKY_M = 0.05, 0.1
@@ -209,6 +254,33 @@ DENSE_OUTLIER_PERCENTILE = 90
 # the shared solver in float32, CUDA against CPU, on the 3 x 3 relief survey
 SHARED_GROUP_SIZE, SHARED_MAX_ITERATIONS = 3, 50
 SHARED_FOCAL_REL, SHARED_DEG = 5e-3, 0.1
+# phase 13: the fed extraction's crop (rows, columns) and keypoint bounds,
+# card against CPU; RANSAC's size and bounds; the points relax's bounds; the
+# interchange's pose bound
+FED_CROP_HW, FED_MAX_FEATURES, FED_XY_PX, FED_XY_SHARE = (300, 400), 1024, 0.01, 0.99
+# descriptor bits of equal keypoints, card against CPU: a bit compares two
+# smoothed samples, and the card's convolutions sum in another order, so a
+# near-tie flips (tests/test_torch_features.py holds the port to the
+# reference the same way)
+FED_BIT_SHARE = 0.995
+RANSAC_N, RANSAC_K, RANSAC_MODEL_REL, RANSAC_INLIER_SHARE, RANSAC_SCORE_REL = 2048, 2048, 1e-4, 0.995, 1e-2
+RANSAC_SEEDS = (5, 6)  # two scenes with outliers; the first also without
+# the essential RANSAC's inliers against the scene's truth on the scenes with
+# outliers (other picks in the 5-point null space, on the CPU,
+# tools/torch_essential_bases.py: precision 0.9888-0.9988, recall 0.81-1.00
+# over 16 runs), and its model against the true essential matrix without
+# outliers (at most 1.2e-3 over 8 runs)
+ESSENTIAL_PRECISION, ESSENTIAL_TRUTH = 0.98, 1e-2
+# DEGENSAC's scene: this share of the points on one plane, and the seed
+DEGENSAC_PLANAR, DEGENSAC_SEED = 0.85, 7
+# the points problem of the 2 x 3 survey routes to CG (T = 2111); its inexact
+# steps carry the card's summation order into another iteration path (43
+# against 42 LM iterations, points 1.88e-3 m apart on an NVIDIA H100 80GB
+# HBM3 at 700 W), where a pixel of this survey covers 0.15 m of ground
+POINTS_DEG, POINTS_M = 0.1, 5e-3
+# the same problem by the dense route (Cholesky) on both devices: exact steps
+POINTS_DENSE_DEG, POINTS_DENSE_M = 1e-6, 1e-6
+INTERCHANGE_POSE = 1e-12
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
 # NVIDIA's published H100 SXM peaks (dense, at 700 W): int8 tensor cores and
@@ -579,8 +651,8 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
     ``focal_px_tag`` (default: the true focal); ``color`` writes colour
     files with a seeded exposure gain per image, PPM or with ``fmt="jpg"``
     JPEG at quality 95 through the port's encoder. Returns the pipeline, the
-    survey's paths, positions and orientations, and the state's kernel
-    launches."""
+    survey's paths, positions and orientations, the state's kernel
+    launches and its relax solves as ``_SolveRecorder`` records them."""
     cfg = cfg or FULL
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
@@ -598,24 +670,16 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
           f"(relief {relief_m} m, focal tag {focal_px_tag or cfg['focal']}) in {time.perf_counter() - t0:.2f} s")
     _codec_line(label, "survey images")
     p = Pipeline(device="cuda")  # the pipeline's defaults: batches of 10, float64 relax problems
-    groups = []
-    solve_groups = ST.solve_groups
-
-    def counting(builts, *args, **kw):
-        groups.append(len(builts))
-        return solve_groups(builts, *args, **kw)
-
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
     torch.cuda.reset_peak_memory_stats()
-    ST.solve_groups = counting
     hamming_cuda.hamming_top2.launches = 0
     try:
-        with _LinkRecorder() as rec:
+        with _LinkRecorder() as rec, _SolveRecorder() as solves:
             seconds = _initial_processing(p, paths, timed=True)
     finally:
-        ST.solve_groups = solve_groups
         performance.enable_performance_counters(False)
+    groups = [s["groups"] for s in solves.solves]
     launches = hamming_cuda.hamming_top2.launches
     peak = torch.cuda.max_memory_allocated()
     print(f"[{label}] INITIAL_PROCESSING: {len(seconds)} iterate_once calls, seconds "
@@ -638,7 +702,7 @@ def phase_pipeline_full_size(directory, relief_m, label, cfg=None, focal_px_tag=
     if launches == 0:
         raise AssertionError("the pipeline never launched the Hamming kernel")
     _check_link_chunk(rec.chunk, label)
-    return p, paths, positions, quats_gt, launches
+    return p, paths, positions, quats_gt, launches, solves.solves
 
 
 def _orientation_error(p, paths, quats_gt, label, bounded=True, fail=None):
@@ -648,7 +712,7 @@ def _orientation_error(p, paths, quats_gt, label, bounded=True, fail=None):
     err = np.asarray([_angles_deg(nodes[path].orientation, quats_gt[i]) for i, path in enumerate(paths)])
     bounds = f"bounds {MEDIAN_DEG}, {MAX_DEG}" if bounded else "not bounded"
     print(f"[{label}] orientation error vs ground truth: median {np.median(err):.4f} deg, "
-          f"max {err.max():.4f} deg ({bounds})")
+          f"max {err.max():.4f} deg at image {int(np.argmax(err))} ({bounds})")
     if not np.isfinite(err).all():
         raise AssertionError(f"non-finite orientations: {err.tolist()}")
     if bounded and not (np.median(err) <= MEDIAN_DEG and err.max() <= MAX_DEG):
@@ -658,32 +722,68 @@ def _orientation_error(p, paths, quats_gt, label, bounded=True, fail=None):
         fail(message)
 
 
-class _SolveRecorder:
-    """Records every relax solve of the pipeline (groups, each group's
-    tangent dimension, the batch layout's dimension and route, LM
-    iterations) and keeps the last one's built problems."""
+def _free_cameras(built):
+    """{node id: whether a measurement reaches its rotation} over the free
+    cameras of a built relax problem; a free camera that only the downwards
+    prior reaches has a free heading."""
+    lay = built.layout
+    measured = set()
+    for b in built.blocks:
+        if b.name == "downwards_prior":
+            continue
+        s = b.slots[b.weight > 0].reshape(-1).cpu().numpy()
+        measured |= set(((s[(s >= lay.rot_off) & (s < lay.mesh_off)] - lay.rot_off) // 3).tolist())
+    free = built.free_mask.cpu().numpy()
+    return {nid: c in measured for nid, c in built.cam_index.items() if free[lay.rot_off + 3 * c]}
 
-    def __init__(self):
+
+class _SolveRecorder:
+    """Records every relax solve of the pipeline (the stage looks its
+    solvers up by name): groups, bucketed lanes, each group's free cameras
+    and whether a measurement reaches each, each group's tangent
+    dimension, the batch layout's dimension and route, LM iterations per
+    lane (or of the joint solve) and seconds; with ``keep_last`` a copy of
+    the last batched solve's batch as it entered the solve, its pre-solve
+    flag, LM budget and result."""
+
+    _NAMES = ("solve_group_batch", "solve_group_batch_shared")
+
+    def __init__(self, keep_last=False):
         self.solves = []
-        self.last_builts = None
-        self._orig = ST.solve_groups
+        self.last = None
+        self.keep_last = keep_last
+        self._orig = {n: getattr(ST, n) for n in self._NAMES}
 
     def __enter__(self):
-        def recording(builts, *args, **kw):
-            dim = GS.batch_layout(builts).dim
-            out = self._orig(builts, *args, **kw)
-            self.solves.append(dict(
-                groups=len(builts), dims=[b.layout.dim for b in builts], batch_dim=dim,
-                route=LM.route(dim), lm=[int(i.iterations) for i in out[1]],
-            ))
-            self.last_builts = list(builts)
-            return out
+        def wrap(name):
+            orig = self._orig[name]
 
-        ST.solve_groups = recording
+            def recording(batch, pre_solve, *args, **kw):
+                entry = copy.deepcopy(batch) if self.keep_last and name == "solve_group_batch" else None
+                t0 = time.perf_counter()
+                out = orig(batch, pre_solve, *args, **kw)
+                _sync()
+                it = out[1].iterations
+                self.solves.append(dict(
+                    kind=name, groups=batch.num_groups, lanes=GS._bucket(batch.num_groups, minimum=1),
+                    free=[_free_cameras(b) for b in batch.builts],
+                    dims=[b.layout.dim for b in batch.builts], batch_dim=batch.layout.dim,
+                    route=LM.route(batch.layout.dim), lm=[int(i) for i in it.reshape(-1).tolist()],
+                    seconds=time.perf_counter() - t0,
+                ))
+                if entry is not None:
+                    self.last = dict(batch=entry, pre_solve=pre_solve, kw=dict(kw), out=out)
+                return out
+
+            return recording
+
+        for name in self._NAMES:
+            setattr(ST, name, wrap(name))
         return self
 
     def __exit__(self, *exc):
-        ST.solve_groups = self._orig
+        for name, fn in self._orig.items():
+            setattr(ST, name, fn)
 
 
 def _local_offset(p, positions):
@@ -693,13 +793,13 @@ def _local_offset(p, positions):
     return positions[0] - np.asarray(first.position)
 
 
-def _relief_error(points, positions, offset):
+def _relief_error(points, positions, offset, relief_m=RELIEF_M):
     """|height - relief| of ``points`` (local frame) inside the camera
     footprint, in the survey's frame; and how many were inside."""
     v = np.asarray(points, np.float64) + offset
     lo, hi = positions[:, :2].min(0), positions[:, :2].max(0)
     inside = np.all((v[:, :2] >= lo) & (v[:, :2] <= hi), axis=1)
-    truth = S.relief_height(torch.as_tensor(v[inside, :2]), RELIEF_M, RELIEF_WAVELENGTH_M).numpy()
+    truth = S.relief_height(torch.as_tensor(v[inside, :2]), relief_m, RELIEF_WAVELENGTH_M).numpy()
     return np.abs(v[inside, 2] - truth), int(inside.sum())
 
 
@@ -707,6 +807,20 @@ def _height_error(p, positions):
     """Final mesh heights against the relief at the vertices inside the
     camera footprint."""
     return _relief_error(p.surfaces[0].mesh.vertices, positions, _local_offset(p, positions))
+
+
+def _surface_error(p, positions, relief_m, n=20):
+    """The final mesh's surface against the relief (``relief_m`` of
+    amplitude; 0: the flat ground) at an n x n grid over the camera
+    footprint: the minimal mesh of a flat survey has no vertex inside it."""
+    offset = _local_offset(p, positions)
+    lo, hi = positions[:, :2].min(0), positions[:, :2].max(0)
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], n), np.linspace(lo[1], hi[1], n))
+    xy = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    z = p.surfaces[0].mesh.interpolate_z(xy - offset[:2]) + offset[2]
+    truth = S.relief_height(torch.as_tensor(xy), relief_m, RELIEF_WAVELENGTH_M).numpy()
+    err = np.abs(z - truth)
+    return err[np.isfinite(err)], int(np.isfinite(err).sum())
 
 
 def _solve_ms_per_iteration(built, linear_solver):
@@ -719,14 +833,15 @@ def _solve_ms_per_iteration(built, linear_solver):
 
 
 def phase_mesh_refinement(directory):
-    """The relief survey from INITIAL_PROCESSING through FINAL_GLOBAL_RELAX;
-    returns the kernel launches of the whole run (the link check between the
-    two parts launches the kernel too and is not counted) and the state at
-    the entry of CAMERA_PARAMETER_RELAX (graph, GPS index, camera models,
-    surfaces), which the shared solver's phase starts from."""
-    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip", cfg=MESH)
+    """The relief survey from INITIAL_PROCESSING through MESH_REFINEMENT to
+    the entry of CAMERA_PARAMETER_RELAX; returns the kernel launches of the
+    whole run (the link check between the two parts launches the kernel too
+    and is not counted) and the state at that entry (graph, GPS index,
+    camera models, surfaces), which the shared solver's phase starts from."""
+    print("[mesh] cut for time: the run stops at the entry of CAMERA_PARAMETER_RELAX (the state phase 10 needs); "
+          "FINAL_GLOBAL_RELAX, its plan reuse and the dense-against-CG solve run in phase 7")
+    p, paths, positions, quats_gt, ip_launches, _ = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip", cfg=MESH)
     _orientation_error(p, paths, quats_gt, "mesh-ip", bounded=False)
-    p.skip_camera_param_relax = True
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
     torch.cuda.reset_peak_memory_stats()
@@ -735,10 +850,8 @@ def phase_mesh_refinement(directory):
     entry = None
     try:
         with _SolveRecorder() as rec:
-            while p.get_state() != PipelineState.GENERATE_THUMBNAIL:
+            while p.get_state() != PipelineState.CAMERA_PARAMETER_RELAX:
                 state = p.get_state()
-                if state == PipelineState.CAMERA_PARAMETER_RELAX and entry is None:
-                    entry = (copy.deepcopy(p.graph), p.gps_positions, dict(p.model_store), copy.deepcopy(p.surfaces))
                 n_solves = len(rec.solves)
                 t0 = time.perf_counter()
                 p.iterate_once()
@@ -752,9 +865,10 @@ def phase_mesh_refinement(directory):
                     solves=rec.solves[n_solves:],
                 ))
                 if len(steps) > 60:
-                    raise AssertionError("the pipeline did not reach GENERATE_THUMBNAIL in 60 passes")
+                    raise AssertionError("the pipeline did not reach CAMERA_PARAMETER_RELAX in 60 passes")
     finally:
         performance.enable_performance_counters(False)
+    entry = (copy.deepcopy(p.graph), p.gps_positions, dict(p.model_store), copy.deepcopy(p.surfaces))
     launches = ip_launches + hamming_cuda.hamming_top2.launches
     peak = torch.cuda.max_memory_allocated()
     per_state = {}
@@ -782,8 +896,6 @@ def phase_mesh_refinement(directory):
           f"from INITIAL_PROCESSING on")
     if len(refine_passes) < 2 or steps[-1]["triangles"] <= 2:
         raise AssertionError("MESH_REFINEMENT never refined the mesh over the relief")
-    if reuses == 0:
-        raise AssertionError("FINAL_GLOBAL_RELAX never reused its plan")
     _orientation_error(p, paths, quats_gt, "mesh")
     herr, n_inside = _height_error(p, positions)
     print(f"[mesh] mesh height error vs the relief at {n_inside} vertices inside the camera footprint: "
@@ -791,9 +903,147 @@ def phase_mesh_refinement(directory):
     if not n_inside or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
         raise AssertionError(f"mesh does not follow the relief: {np.round(herr, 3).tolist()}")
 
-    # the last full problem (FINAL_GLOBAL_RELAX's one-group pass), solved by
-    # the dense and the matrix-free linear solvers on the card
-    built = rec.last_builts[-1]
+    return launches, entry
+
+
+def _pose_gaps(a, b, builts):
+    """Largest rotation (rad) and mesh-height (m) differences between two
+    solves' per-group host results, over the groups' cameras and real
+    vertices."""
+    rad, m = 0.0, 0.0
+    for pa, pb, built in zip(a, b, builts):
+        rad = max(rad, float(np.radians(_angles_deg(pa.quats, pb.quats)).max()))
+        if built.v_real:
+            m = max(m, float(np.abs(pa.mesh_z[: built.v_real] - pb.mesh_z[: built.v_real]).max()))
+    return rad, m
+
+
+def _serial_against_batched(last):
+    """The last MESH_REFINEMENT pass's batch solved again on the card: by
+    ``solve_groups`` (one group after another) against the pipeline's
+    batched result, and by ``solve_group_batch`` once more, bit for bit."""
+    batch, pre_solve, iters = last["batch"], last["pre_solve"], last["kw"].get("max_iterations")
+    batched = GS.fetch_solved(last["out"][0])
+    again, _ = GS.solve_group_batch(copy.deepcopy(batch), pre_solve, max_iterations=iters)
+    same = all(np.array_equal(getattr(GS.fetch_solved(again), f), getattr(batched, f)) for f in FIELDS)
+    _sync()
+    t0 = time.perf_counter()
+    serial, infos = GS.solve_groups(batch.builts, pre_solve, max_iterations=iters,
+                                    init_lambda=None if batch.warm_lambda is None else batch.warm_lambda[0])
+    _sync()
+    serial_s = time.perf_counter() - t0
+    per_group = [GS.extract_group_params(batch, batched, g) for g in range(batch.num_groups)]
+    rad, m = _pose_gaps(serial, per_group, batch.builts)
+    print(f"[multi] the last MESH_REFINEMENT batch solved again on the card: batched twice bit-identical: {same}; "
+          f"serial solve_groups {serial_s:.3f} s, LM {[int(i.iterations) for i in infos]} against the batched "
+          f"{last['out'][1].iterations.tolist()}, poses within {rad:.3e} rad and {m:.3e} m of the batched result "
+          f"(bounds {SERIAL_RAD}, {SERIAL_M})")
+    if not same:
+        raise AssertionError("two batched solves of the same batch differ")
+    if not (rad <= SERIAL_RAD and m <= SERIAL_M):
+        raise AssertionError("the serial and the batched group solves disagree")
+
+
+def phase_multi_group(directory):
+    """Phase 7: the flat 56-image survey (``MULTI``) from images through
+    INITIAL_PROCESSING, MESH_REFINEMENT and FINAL_GLOBAL_RELAX with the
+    pipeline's defaults and the camera parameters skipped: every relax pass
+    of more than one pose group is one batched solve. Returns the pipeline,
+    the kernel launches from INITIAL_PROCESSING to the end, and the batch
+    of the last MESH_REFINEMENT pass."""
+    p, paths, positions, quats_gt, ip_launches, ip_solves = phase_pipeline_full_size(
+        directory, 0.0, "pipeline", cfg=MULTI)
+    _ip_orientation_check(p, paths, quats_gt, ip_solves)
+    p.skip_camera_param_relax = True
+    performance.reset_performance_counters()
+    performance.enable_performance_counters(True)
+    torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.hamming_top2.launches = 0
+    steps, last_mr = [], None
+    try:
+        with _SolveRecorder(keep_last=True) as rec:
+            while p.get_state() != PipelineState.GENERATE_THUMBNAIL:
+                state, n = p.get_state(), len(rec.solves)
+                t0 = time.perf_counter()
+                p.iterate_once()
+                _sync()
+                steps.append(dict(state=state, seconds=time.perf_counter() - t0, solves=rec.solves[n:],
+                                  level=getattr(p, "_mesh_grid_level", None)))
+                if state == PipelineState.MESH_REFINEMENT and rec.last is not None:
+                    last_mr = rec.last
+                if len(steps) > 40:
+                    raise AssertionError("the pipeline did not reach GENERATE_THUMBNAIL in 40 passes")
+    finally:
+        performance.enable_performance_counters(False)
+    launches = ip_launches + hamming_cuda.hamming_top2.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_state = {}
+    for st in steps:
+        per_state.setdefault(st["state"], []).append(st["seconds"])
+    print(f"[multi] {len(steps)} iterate_once calls after INITIAL_PROCESSING, "
+          f"{sum(st['seconds'] for st in steps):.4f} s; per state "
+          + ", ".join(f"{k} {len(v)} x, {sum(v):.4f} s" for k, v in per_state.items()))
+    for i, st in enumerate(steps):
+        solves = "; ".join(
+            f"{x['kind']}: {x['groups']} group(s) in {x['lanes']} lane(s), dims {x['dims']}, T = {x['batch_dim']} -> "
+            f"{x['route']}, LM per lane {x['lm']}, {x['seconds']:.3f} s" for x in st["solves"]) or "no solve"
+        print(f"[multi] pass {i}: {st['state']} (level {st['level']}), {st['seconds']:.4f} s; {solves}")
+    print("[multi] stage counters (host clock; seconds):")
+    for line in performance.total_performance_summary().splitlines():
+        print(f"[multi]   {line}")
+    reuses = int(performance.get_event_count("relax plan reuses"))
+    print(f"[multi] peak memory allocated {peak / 2**30:.3f} GiB; {reuses} plan reuses; Hamming kernel launches "
+          f"{launches} from INITIAL_PROCESSING on")
+    mr = [st for st in steps if st["state"] == PipelineState.MESH_REFINEMENT]
+    bad = [(i, [(x["kind"], x["groups"]) for x in st["solves"]]) for i, st in enumerate(mr)
+           if [x["kind"] for x in st["solves"]] != ["solve_group_batch"] or st["solves"][0]["groups"] < 2]
+    if not mr or bad:
+        raise AssertionError(f"a MESH_REFINEMENT pass was not one batched solve of two groups or more: {bad}")
+    if reuses == 0:
+        raise AssertionError("FINAL_GLOBAL_RELAX never reused its plan")
+    _orientation_error(p, paths, quats_gt, "multi")
+    herr, n_inside = _surface_error(p, positions, 0.0)
+    print(f"[multi] mesh height error vs the flat ground at {n_inside} points of a grid over the camera footprint: "
+          f"median {np.median(herr):.4f} m, max {herr.max():.4f} m (bounds {HEIGHT_MEDIAN_M}, {HEIGHT_MAX_M})")
+    if not n_inside or not (np.median(herr) <= HEIGHT_MEDIAN_M and herr.max() <= HEIGHT_MAX_M):
+        raise AssertionError(f"mesh does not follow the ground: {np.round(herr, 3).tolist()}")
+    _serial_against_batched(last_mr)
+    _cholesky_against_cg(last_mr["batch"].builts[0])
+    return p, launches
+
+
+def _ip_orientation_check(p, paths, quats_gt, solves):
+    """Phase 7's orientations after INITIAL_PROCESSING: the median within
+    MEDIAN_DEG, and every camera beyond MAX_DEG one that its last relax held
+    by the downwards prior alone. Such a camera is a depth-2 halo camera of
+    a later batch's relax: co-optimised, but none of its edges joins the
+    problem, so its heading is free and the LM's rounding moves it. The JAX
+    package does the same (ROADMAP 3b, ``tools/torch_ip_witness.py``)."""
+    nodes = _by_path(p)
+    err = np.asarray([_angles_deg(nodes[path].orientation, quats_gt[i]) for i, path in enumerate(paths)])
+    image_of = {nid: paths.index(n.payload.path) for nid, n in p.graph.nodes()}
+    last = {}
+    for solve in solves:
+        for group in solve["free"]:
+            for nid, measured in group.items():
+                last[image_of[nid]] = measured
+    off = [int(i) for i in np.flatnonzero(err > MAX_DEG)]
+    unexplained = [i for i in off if last.get(i, True)]
+    held = sorted(i for i, measured in last.items() if not measured)
+    print(f"[pipeline] orientation error vs ground truth: median {np.median(err):.4f} deg (bound {MEDIAN_DEG}), max "
+          f"{err.max():.4f} deg at image {int(np.argmax(err))}; beyond {MAX_DEG} deg: "
+          f"{ {i: round(float(err[i]), 4) for i in off} }; held by the downwards prior alone in their last relax: "
+          f"{held}")
+    if not np.isfinite(err).all():
+        raise AssertionError(f"non-finite orientations: {err.tolist()}")
+    if not np.median(err) <= MEDIAN_DEG or unexplained:
+        raise AssertionError(f"cameras not recovered: {np.round(err, 3).tolist()}; beyond {MAX_DEG} deg with a "
+                             f"measurement in their last relax: {unexplained}")
+
+
+def _cholesky_against_cg(built):
+    """One lane of the last MESH_REFINEMENT batch solved by the dense and by
+    the matrix-free linear solver on the card, and by CG twice, bit for bit."""
     torch.cuda.reset_peak_memory_stats()
     ch, ch_info, ch_ms = _solve_ms_per_iteration(built, "cholesky")
     ch_peak = torch.cuda.max_memory_allocated()
@@ -802,9 +1052,9 @@ def phase_mesh_refinement(directory):
     ang = _angles_deg(ch.quats, cg.quats)
     dz = float((ch.mesh_z - cg.mesh_z).abs().max())
     same = all(torch.equal(getattr(cg, f), getattr(cg2, f)) for f in ("quats", "mesh_z", "focal", "radial"))
-    print(f"[mesh] last full problem: tangent dim {built.layout.dim} ({built.layout.C} cameras, "
-          f"{built.layout.V} mesh slots), blocks {[(b.name, b.slots.shape[0]) for b in built.blocks]}")
-    print(f"[mesh] cholesky: {int(ch_info.iterations)} LM iterations, {ch_ms:.3f} ms each, peak memory allocated "
+    print(f"[multi] one lane of the last MESH_REFINEMENT batch: tangent dim {built.layout.dim} ({built.layout.C} "
+          f"cameras, {built.layout.V} mesh slots), blocks {[(b.name, b.slots.shape[0]) for b in built.blocks]}")
+    print(f"[multi] cholesky: {int(ch_info.iterations)} LM iterations, {ch_ms:.3f} ms each, peak memory allocated "
           f"{ch_peak / 2**30:.3f} GiB; cg: {int(cg_info.iterations)} LM iterations, {cg_ms:.3f} / {cg2_ms:.3f} ms "
           f"each (two runs); cg vs cholesky: orientations {ang.max():.5f} deg, heights {dz:.5f} m apart "
           f"(bounds {CG_VS_CHOLESKY_DEG}, {CG_VS_CHOLESKY_M}); cg run twice bit-identical: {same}")
@@ -812,7 +1062,6 @@ def phase_mesh_refinement(directory):
         raise AssertionError("two CG solves of the same problem differ")
     if not (np.isfinite(ang).all() and ang.max() <= CG_VS_CHOLESKY_DEG and dz <= CG_VS_CHOLESKY_M):
         raise AssertionError("the CG and Cholesky solves disagree")
-    return launches, entry
 
 
 class _BuildRecorder:
@@ -889,7 +1138,7 @@ def phase_camera_relax(directory):
     focal tag through a saved and loaded checkpoint to COMPLETE; returns the
     kernel launches from INITIAL_PROCESSING to COMPLETE."""
     true_focal = FULL["focal"]
-    p, paths, positions, quats_gt, ip_launches = phase_pipeline_full_size(
+    p, paths, positions, quats_gt, ip_launches, _ = phase_pipeline_full_size(
         directory, RELIEF_M, "calib-ip", focal_px_tag=FOCAL_TAG_FACTOR * true_focal, color=True, fmt="jpg")
     tag = float(p.model_store[1].focal_length_pixels)
     if len(p.model_store) != 1 or abs(tag / true_focal - FOCAL_TAG_FACTOR) > 1e-6 or p.skip_camera_param_relax:
@@ -1384,6 +1633,264 @@ def phase_shared_solver(entry):
         raise AssertionError("the shared solver's CUDA and CPU results disagree")
 
 
+def _read_pgm(path):
+    """A binary 8-bit PGM as written by ``testing/survey.py``: [H, W] uint8."""
+    data = open(path, "rb").read()
+    magic, w, h, maxval, rest = data.split(maxsplit=4)
+    if magic != b"P5" or maxval != b"255":
+        raise ValueError(f"{path} is not an 8-bit binary PGM")
+    return np.frombuffer(rest, np.uint8)[: int(w) * int(h)].reshape(int(h), int(w))
+
+
+def _fed_entry(images):
+    """``extract_features(diffusion="fed")`` on a crop of two survey images,
+    card against CPU, then at full size on the card alone."""
+    h, w = FED_CROP_HW
+    crop = torch.as_tensor(np.ascontiguousarray(images[:, :h, :w]))
+    feats = {dev: F.extract_features(crop.to(dev), max_features=FED_MAX_FEATURES, diffusion="fed")
+             for dev in ("cuda", "cpu")}
+    got, want = ({k: v.cpu().numpy() for k, v in feats[d].items()} for d in ("cuda", "cpu"))
+    counts = (got["valid"].sum(1).tolist(), want["valid"].sum(1).tolist())
+    v = want["valid"] & got["valid"]
+    close = (np.abs(got["xy"] - want["xy"]) <= FED_XY_PX).all(-1) & v
+    equal = (got["xy"] == want["xy"]).all(-1) & v
+    rows = (got["descriptors"][equal] == want["descriptors"][equal]).all(-1)
+    bits = np.unpackbits(got["descriptors"][equal].view(np.uint8)) == np.unpackbits(
+        want["descriptors"][equal].view(np.uint8))
+    share = close.sum() / max(want["valid"].sum(), 1)
+    print(f"[entry] extract_features(diffusion='fed') on a {w}x{h} crop of two survey images: keypoints "
+          f"{counts[0]} on the card, {counts[1]} on the CPU; {share:.4f} within {FED_XY_PX} px (bound "
+          f"{FED_XY_SHARE}); of the {int(equal.sum())} equal keypoints {int(rows.sum())} have equal descriptors, "
+          f"{bits.mean():.5f} of the bits equal (bound {FED_BIT_SHARE})")
+    if counts[0] != counts[1] or share < FED_XY_SHARE or bits.mean() < FED_BIT_SHARE or not want["valid"].sum():
+        raise AssertionError("the fed extraction differs between the card and the CPU")
+    full = torch.as_tensor(images).to("cuda")
+    F.extract_features(full[:1, :64, :64], max_features=64, diffusion="fed")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    out = F.extract_features(full, max_features=FULL["max_features"], diffusion="fed")
+    _sync()
+    print(f"[entry] fed extraction at {full.shape[2]}x{full.shape[1]} on the card: {full.shape[0]} images in "
+          f"{time.perf_counter() - t0:.3f} s, keypoints {out['valid'].sum(1).tolist()}, peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def _epipolar_scene(n, seed, planar=0.2, outliers=0.15):
+    """Calibrated correspondences [n, 3] of two views 0.5 m apart turned by
+    0.15 rad: a ``planar`` share of the points on one plane, the rest at
+    depths 5-15, 1e-4 of noise, an ``outliers`` share replaced at random.
+    Returns them, the true essential matrix (x2^T E x1 = 0) and the mask of
+    the true correspondences."""
+    rng = np.random.default_rng(seed)
+    c, s_ = np.cos(0.15), np.sin(0.15)
+    R2 = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]])
+    t2 = np.array([0.5, 0.0, 0.0])
+    X = np.column_stack([rng.uniform(-3, 3, n), rng.uniform(-3, 3, n), rng.uniform(5, 15, n)])
+    X[: int(n * planar), 2] = 10.0
+    x1 = X / X[:, 2:]
+    x2 = (X - t2) @ R2.T
+    x2 = x2 / x2[:, 2:]
+    x1[:, :2] += rng.normal(scale=1e-4, size=(n, 2))
+    x2[:, :2] += rng.normal(scale=1e-4, size=(n, 2))
+    out = rng.random(n) < outliers
+    x2[out, :2] = rng.uniform(-1, 1, (out.sum(), 2))
+    t = -R2 @ t2
+    E = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ R2
+    return x1, x2, E, ~out
+
+
+def _sign_gap(a, b):
+    """Largest entry of the difference of two 3 x 3 models scaled to unit
+    norm, the nearer of the two signs."""
+    a, b = (np.asarray(m, np.float64).reshape(-1) for m in (a, b))
+    a, b = a / np.linalg.norm(a), b / np.linalg.norm(b)
+    return float(min(np.abs(a - b).max(), np.abs(a + b).max()))
+
+
+def _ransac_both(x1, x2, model_type):
+    """``ransac`` of one scene on the card and on the CPU from the same
+    uniforms: {device: (result on the CPU, seconds)}."""
+    n = len(x1)
+    u = R.default_uniforms(RANSAC_K, R._MODELS[model_type].min_points, R.DEFAULT_SEED, "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = [torch.as_tensor(a, device=dev) for a in (x1, x2, np.zeros(n), np.ones(n, bool))]
+        t0 = time.perf_counter()
+        res = R.ransac(*args, model_type, num_hypotheses=RANSAC_K, uniforms=u.to(dev))
+        if dev == "cuda":
+            _sync()
+        out[dev] = (R.RansacResult(*(v.cpu() for v in res)), time.perf_counter() - t0)
+    return out
+
+
+def _ransac_line(model_type, label, out):
+    """Print the card against the CPU; returns (models' gap up to sign,
+    share of equal inlier flags, relative score gap)."""
+    (a, ta), (b, tb) = out["cuda"], out["cpu"]
+    gap = _sign_gap(a.model, b.model)
+    same = float((a.inliers == b.inliers).double().mean())
+    score_rel = abs(float(a.score) - float(b.score)) / max(float(b.score), 1e-30)
+    print(f"[entry] ransac('{model_type}'), {label}, {len(a.inliers)} correspondences, {RANSAC_K} hypotheses: card "
+          f"{ta:.3f} s, CPU {tb:.3f} s; models {gap:.2e} apart up to sign; inlier flags {same:.5f} equal; "
+          f"{int(a.inliers.sum())} / {int(b.inliers.sum())} inliers; scores {float(a.score):.6f} / "
+          f"{float(b.score):.6f} ({score_rel:.2e} apart)")
+    return gap, same, score_rel
+
+
+def _ransac_entry():
+    """``ransac`` for the epipolar models on the card against the CPU, on the
+    same uniforms. The fundamental matrix (8 points) is held to the CPU on
+    two scenes with outliers. An essential hypothesis (5 points) is a vector
+    of a 4-dimensional null space that the eigen solver picks, differently
+    on the card and on the CPU, so the essential RANSAC is held to the CPU on
+    a scene without outliers, and to the truth (the precision of its
+    inliers) on the scenes with outliers. Then DEGENSAC on both devices from
+    one plane-degenerate fundamental matrix, where it must fire."""
+    n = RANSAC_N
+    for seed in RANSAC_SEEDS:
+        x1, x2, _, true = _epipolar_scene(n, seed)
+        gap, same, score_rel = _ransac_line("fundamental", f"scene {seed}", _ransac_both(x1, x2, "fundamental"))
+        if not (gap <= RANSAC_MODEL_REL and same >= RANSAC_INLIER_SHARE and score_rel <= RANSAC_SCORE_REL):
+            raise AssertionError(f"ransac('fundamental') differs between the card and the CPU on scene {seed}")
+        out = _ransac_both(x1, x2, "essential")
+        _ransac_line("essential", f"scene {seed}", out)
+        for dev, (res, _) in out.items():
+            inl = res.inliers.numpy()
+            precision = float((inl & true).sum() / max(inl.sum(), 1))
+            recall = float((inl & true).sum() / true.sum())
+            print(f"[entry]   essential on the {dev}: precision {precision:.4f} (bound {ESSENTIAL_PRECISION}), "
+                  f"recall {recall:.4f} of the scene's true correspondences")
+            if not precision >= ESSENTIAL_PRECISION:
+                raise AssertionError(f"ransac('essential') on the {dev} keeps outliers on scene {seed}")
+    x1, x2, E, _ = _epipolar_scene(n, RANSAC_SEEDS[0], outliers=0.0)
+    out = _ransac_both(x1, x2, "essential")
+    gap, same, score_rel = _ransac_line("essential", f"scene {RANSAC_SEEDS[0]} without outliers", out)
+    truth = {dev: _sign_gap(res.model, E) for dev, (res, _) in out.items()}
+    print(f"[entry]   models against the true essential matrix: card {truth['cuda']:.2e}, CPU {truth['cpu']:.2e} "
+          f"(bound {ESSENTIAL_TRUTH})")
+    if not (same >= RANSAC_INLIER_SHARE and score_rel <= RANSAC_SCORE_REL and max(truth.values()) <= ESSENTIAL_TRUTH):
+        raise AssertionError("ransac('essential') differs between the card and the CPU on the scene without outliers")
+    # DEGENSAC from a fundamental matrix fitted to the plane's points alone,
+    # one matrix for both devices: it explains the plane and little else
+    x1, x2, _, _ = _epipolar_scene(n, DEGENSAC_SEED, planar=DEGENSAC_PLANAR)
+    plane = np.zeros(n)
+    plane[: int(n * DEGENSAC_PLANAR)] = 1.0
+    F0 = M.fundamental_fit_weighted(*(torch.as_tensor(a) for a in (x1[:, :2], x2[:, :2], plane)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p1, p2, valid = (torch.as_tensor(a, device=dev) for a in (x1[:, :2], x2[:, :2], np.ones(n, bool)))
+        Fd = F0.to(dev)
+        per, inl = R._msac_score(M.epipolar_error(Fd, p1, p2), M.FUNDAMENTAL_INLIER_THRESHOLD, valid)
+        out[dev] = [v.cpu() for v in R._fundamental_degensac(Fd, per.sum(), inl, p1, p2, valid,
+                                                             M.FUNDAMENTAL_INLIER_THRESHOLD)]
+        if dev == "cpu":
+            start = int(inl.sum())
+    (fa, _, ia, ua), (fb, _, ib, ub) = out["cuda"], out["cpu"]
+    gap = _sign_gap(fa, fb)
+    same = float((ia == ib).double().mean())
+    print(f"[entry] DEGENSAC from a plane-degenerate fundamental matrix ({DEGENSAC_PLANAR:.0%} of the points on one "
+          f"plane, {start} inliers): used on the card {bool(ua)}, on the CPU {bool(ub)}; {int(ia.sum())} / "
+          f"{int(ib.sum())} inliers after it, flags {same:.5f} equal (bound {RANSAC_INLIER_SHARE}); models {gap:.2e} "
+          f"apart up to sign (bound {RANSAC_MODEL_REL})")
+    if not (bool(ua) and bool(ub)):
+        raise AssertionError("DEGENSAC did not replace a plane-degenerate fundamental matrix")
+    if not (same >= RANSAC_INLIER_SHARE and gap <= RANSAC_MODEL_REL):
+        raise AssertionError("DEGENSAC differs between the card and the CPU")
+
+
+def _points_entry():
+    """``relax`` with ``points_3d`` of phase 6's 2 x 3 survey on the card
+    against the CPU, from one INITIAL_PROCESSING state: by the problem's own
+    route (CG at its size) and by the dense route (Cholesky), whose exact
+    steps hold the two devices tightly together."""
+    from opencalibration_tpu_torch.relax.problem_builder import apply_solution
+    from opencalibration_tpu_torch.relax.relax import build_problem
+    from opencalibration_tpu_torch.types.graph import NodePose
+
+    with tempfile.TemporaryDirectory() as d:
+        paths, _, _ = S.write_survey(d, SMALL["rows"], SMALL["cols"], device="cuda")
+        ip = Pipeline(batch_size=3, device="cuda")
+        _initial_processing(ip, paths)
+    graph, models = ip.graph, ip.model_store
+    ids = sorted(graph.node_ids())
+    out, dense = {}, {}
+    for dev in ("cuda", "cpu"):
+        poses = [NodePose(node_id=i, orientation=np.array(graph.get_node(i).payload.orientation, np.float64),
+                          position=np.array(graph.get_node(i).payload.position, np.float64)) for i in ids]
+        t0 = time.perf_counter()
+        built, pre = build_problem(graph, poses, dict(models), sorted(graph.edge_ids()),
+                                   RelaxOptions(orientation=True, points_3d=True), dtype=torch.float64, device=dev)
+        batch = GS.build_group_batch([built])
+        solved, info = GS.solve_group_batch(batch, pre)
+        surface = apply_solution(built, GS.extract_group_params(batch, GS.fetch_solved(solved), 0), poses)
+        out[dev] = (poses, surface.cloud[0], int(info.iterations[0]), time.perf_counter() - t0, built.layout)
+        t0 = time.perf_counter()
+        p = built.params
+        if pre:
+            p, _ = LM.solve(p, built.blocks, built.layout, built.surface_free_mask, linear_solver="cholesky")
+        p, info = LM.solve(p, built.blocks, built.layout, built.free_mask, linear_solver="cholesky")
+        dense[dev] = (p.quats.cpu(), p.points.cpu(), int(info.iterations), time.perf_counter() - t0)
+    (pa, ca, ia, sa, lay), (pb, cb, ib, sb, _) = out["cuda"], out["cpu"]
+    ang = max(float(_angles_deg(x.orientation, y.orientation)) for x, y in zip(pa, pb))
+    dm = float(np.abs(ca - cb).max()) if ca.shape == cb.shape else float("inf")
+    print(f"[entry] relax(points_3d) of the 2x3 survey: {lay.P} points, T = {lay.dim} -> {LM.route(lay.dim)}; card "
+          f"{ia} LM iterations in {sa:.3f} s, CPU {ib} in {sb:.3f} s; orientations {ang:.2e} deg apart (bound "
+          f"{POINTS_DEG}), points {dm:.2e} m apart (bound {POINTS_M})")
+    (qa, xa, ja, ta), (qb, xb, jb, tb) = dense["cuda"], dense["cpu"]
+    dang = float(_angles_deg(qa, qb).max())
+    ddm = float((xa - xb).abs().max())
+    print(f"[entry] the same problem by the dense route: card {ja} LM iterations in {ta:.3f} s, CPU {jb} in "
+          f"{tb:.3f} s; orientations {dang:.2e} deg apart (bound {POINTS_DENSE_DEG}), points {ddm:.2e} m apart "
+          f"(bound {POINTS_DENSE_M})")
+    if not (ang <= POINTS_DEG and dm <= POINTS_M):
+        raise AssertionError("the points relax differs between the card and the CPU")
+    if not (dang <= POINTS_DENSE_DEG and ddm <= POINTS_DENSE_M):
+        raise AssertionError("the points relax by the dense route differs between the card and the CPU")
+
+
+def _interchange_entry(p):
+    """``save_reference_graph`` of a pipeline's graph, then
+    ``load_reference_graph``, compared."""
+    from opencalibration_tpu_torch.io.interchange import load_reference_graph, save_reference_graph
+
+    t0 = time.perf_counter()
+    text = save_reference_graph(p.graph, p.model_store)
+    saved = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph, models = load_reference_graph(text)
+    loaded = time.perf_counter() - t0
+    same_ids = (sorted(graph.node_ids()) == sorted(p.graph.node_ids())
+                and sorted(e for e, _ in graph.edges()) == sorted(e for e, _ in p.graph.edges()))
+    pose_gap, desc_ok = 0.0, True
+    for nid in p.graph.node_ids():
+        a, b = p.graph.get_node(nid).payload, graph.get_node(nid).payload
+        pose_gap = max(pose_gap, float(np.abs(np.asarray(a.orientation) - b.orientation).max()),
+                       float(np.abs(np.asarray(a.position) - b.position).max()))
+        n = int(a.features.valid.sum())
+        desc_ok &= np.array_equal(np.asarray(a.features.descriptors[a.features.valid], np.uint32),
+                                  np.asarray(b.features.descriptors[:n], np.uint32))
+    print(f"[entry] save_reference_graph / load_reference_graph of {p.graph.size_nodes()} nodes and "
+          f"{p.graph.size_edges()} edges: {len(text) / 2**20:.2f} MiB, saved in {saved:.3f} s, loaded in {loaded:.3f} "
+          f"s; same node and edge ids {same_ids}, descriptors bit for bit {desc_ok}, poses within {pose_gap:.1e} "
+          f"(bound {INTERCHANGE_POSE}); camera models {sorted(models)}")
+    if not (same_ids and desc_ok and pose_gap <= INTERCHANGE_POSE and sorted(models) == sorted(p.model_store)):
+        raise AssertionError("the reference-format graph does not read back")
+
+
+def phase_entry_points(images, pipeline):
+    """Phase 13: the library entry points that no pipeline state calls, on
+    the card against the CPU: ``fed`` extraction, epipolar RANSAC with
+    DEGENSAC, the points relax, the reference-graph interchange of
+    ``pipeline``'s graph."""
+    t0 = time.perf_counter()
+    _fed_entry(images)
+    _ransac_entry()
+    _points_entry()
+    _interchange_entry(pipeline)
+    print(f"[entry] {time.perf_counter() - t0:.2f} s")
+
+
 RUNNER_ARTIFACTS = ["graph.geojson", "graph.json", "cloud.xyz", "mesh.ply", "ortho.tif", "dsm.tif", "camera_ids.tif",
                     "textured.obj", "textured.mtl", "textured.jpg", "thumb.png", "camera_db.json",
                     os.path.join("ckpt", "metadata.json"), os.path.join("ckpt", "graph.json")]
@@ -1502,12 +2009,14 @@ def main(argv=()):
     step_launches = phase_full_size() if want(5) else None
     if want(6):
         phase_pipeline_cuda_vs_cpu()
-    ip_launches = mesh_launches = calib_launches = relief_entry = None
+    ip_launches = mesh_launches = calib_launches = relief_entry = multi = None
     if want(7):
+        t7 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
-            p, paths, _, quats_gt, ip_launches = phase_pipeline_full_size(d, 0.0, "pipeline")
-            _orientation_error(p, paths, quats_gt, "pipeline")
-        del p
+            multi, ip_launches = phase_multi_group(d)
+            images = np.stack([_read_pgm(os.path.join(d, f)) for f in sorted(os.listdir(d))
+                               if f.endswith(".pgm")][:2]).astype(np.float32) * F.U8_SCALE
+        print(f"[multi] phase 7: {time.perf_counter() - t7:.1f} s")
     if want(8) or want(10):  # phase 10 starts from a state of phase 8
         with tempfile.TemporaryDirectory() as d:
             mesh_launches, relief_entry = phase_mesh_refinement(d)
@@ -1519,6 +2028,14 @@ def main(argv=()):
     if want(11):
         phase_ortho_cuda_vs_cpu()
     runner_launches = phase_runner() if want(12) else None
+    if want(13):
+        if multi is None:  # run alone: phase 6's survey and two views of phase 7's scene
+            images = np.stack([v.cpu().numpy() for v in _scene(dict(MULTI, rows=1, cols=2), "cuda")[0]])
+            with tempfile.TemporaryDirectory() as d:
+                paths, _, _ = S.write_survey(d, SMALL["rows"], SMALL["cols"], device="cuda")
+                multi = Pipeline(batch_size=3, device="cuda")
+                _initial_processing(multi, paths)
+        phase_entry_points(images, multi)
     _assert_standalone("end")
     print(f"[end] {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
@@ -1532,8 +2049,9 @@ def main(argv=()):
         paths={"pipeline from 24 JPEG images over relief, every state (dense mesh on) to COMPLETE": calib_launches,
                "pipeline_runner CLI from JPEG, 6 images at 320x240, relief, --dense-mesh 1, to COMPLETE":
                    runner_launches,
-               "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 9 images at 320x240, relief": mesh_launches,
-               "pipeline INITIAL_PROCESSING, flat": ip_launches, "calibration_step": step_launches},
+               "pipeline INITIAL_PROCESSING..MESH_REFINEMENT, 9 images at 320x240, relief": mesh_launches,
+               "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 56 images, flat, two pose groups": ip_launches,
+               "calibration_step": step_launches},
         **kernel,
     )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -16,7 +16,9 @@ by default, the JAX package's when a test passes them in to go back. A camera
 model store and a relax option set cross the same way, and so do the
 orthomosaic's containers: a thumbnail ``OrthoMosaic``, a list of
 ``ColorCorrespondence`` and a ``ColorBalanceResult``. Nodes carry their Lab
-thumbnails.
+thumbnails. A stacked relax batch (``GroupBatch``: params, blocks with the
+port's residual functions, masks, layout, warm damping) and a solve's
+``SolveInfo``, per lane or not, cross into the port for a solve there.
 """
 
 from __future__ import annotations
@@ -105,6 +107,65 @@ def block_data_from(data: dict, device) -> dict:
 
 def block_data_to_numpy(data: dict) -> dict:
     return {k: to_numpy(v) for k, v in data.items()}
+
+
+def _port_resid(blk):
+    """The port's residual function of ``blk``'s family (the plane-ray
+    family by its ray variant)."""
+    from opencalibration_tpu_torch.relax import blocks as B
+
+    if blk.name == "plane_ray":
+        return B._make_plane_ray_resid("pixel" in blk.data)
+    return {
+        "decomposed_rotation": B._decomposed_rotation_resid, "downwards_prior": B._downwards_resid,
+        "pixel_error": B._pixel_error_resid, "mesh_flat": B._difference_resid, "mesh_anchor": B._difference_resid,
+        "mesh_smooth": B._smooth_resid, "monotonicity": B._monotonicity_resid,
+    }[blk.name]
+
+
+def block_from(blk, device):
+    """A ``BlockSpec`` (leaves with or without a leading group axis) -> the
+    port's, with the port's residual function of its family."""
+    from opencalibration_tpu_torch.relax.blocks import BlockSpec
+
+    return BlockSpec(
+        slots=to_torch(blk.slots, device, torch.int64), data=block_data_from(blk.data, device),
+        weight=to_torch(blk.weight, device), resid_one=_port_resid(blk), num_residuals=blk.num_residuals,
+        huber_delta=blk.huber_delta, name=blk.name,
+    )
+
+
+def group_batch_from(batch, device):
+    """A stacked ``GroupBatch`` -> the port's: params, blocks, masks, layout,
+    model permutations and warm damping. The built problems stay behind
+    (``builts`` is empty): the batch solves, it does not write back."""
+    from opencalibration_tpu_torch.parallel.group_solver import GroupBatch
+    from opencalibration_tpu_torch.relax.tangent import TangentLayout
+
+    lay = batch.layout
+    warm = None
+    if batch.warm_lambda is not None:
+        warm = tuple(None if w is None else to_torch(w, device) for w in batch.warm_lambda)
+    return GroupBatch(
+        params=relax_params_from(batch.params, device), blocks=tuple(block_from(b, device) for b in batch.blocks),
+        free=to_torch(batch.free, device, torch.bool), surface_free=to_torch(batch.surface_free, device, torch.bool),
+        layout=TangentLayout(lay.C, lay.V, lay.P, lay.M), builts=[], num_groups=batch.num_groups,
+        shared_intrinsics=batch.shared_intrinsics,
+        model_perms=None if batch.model_perms is None else [None if m is None else np.array(m)
+                                                             for m in batch.model_perms],
+        warm_lambda=warm,
+    )
+
+
+def solve_info_from(info, device):
+    """A ``SolveInfo`` (0-d leaves, or [G] of a batched solve) -> the port's."""
+    from opencalibration_tpu_torch.relax.lm import SolveInfo
+
+    return SolveInfo(**{f.name: to_torch(getattr(info, f.name), device) for f in dataclasses.fields(SolveInfo)})
+
+
+def solve_info_to_numpy(info) -> dict:
+    return {f.name: to_numpy(getattr(info, f.name)) for f in dataclasses.fields(info)}
 
 
 def features_from(feats: dict, device) -> dict:

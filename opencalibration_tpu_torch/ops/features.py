@@ -1,8 +1,10 @@
-"""Batched multi-scale feature detection + MLDB-style binary description,
-Gaussian scale space (twin of opencalibration_tpu/ops/features.py).
+"""Batched multi-scale feature detection + MLDB-style binary description
+(twin of opencalibration_tpu/ops/features.py).
 
 Detection is the sigma^4-normalised Hessian determinant over a decimated
-octave pyramid with 3x3x3 (x, y, scale) non-maximum suppression and a
+octave pyramid (``diffusion="gaussian"``) or over a full-resolution nonlinear
+scale space (``diffusion="fed"``: Perona-Malik conductivity, explicit
+diffusion steps), with 3x3x3 (x, y, scale) non-maximum suppression and a
 fixed-size top-k; description samples (L, Lx, Ly) on 2x2 / 3x3 / 4x4 grids in
 the keypoint's oriented frame and compares every intra-grid cell pair:
 3 * (6 + 36 + 120) = 486 bits, packed with ``hamming.pack_bits``.
@@ -66,6 +68,90 @@ def _blur_levels(base, base_sigma: float, rels):
         inc = math.sqrt(max(rel * rel - base_sigma * base_sigma, 0.0))
         outs.append(_blur(base, inc) if inc > 0 else base)
     return torch.stack(outs)
+
+
+def _level_sigmas():
+    return [BASE_SIGMA * (2.0 ** (o + s / SUBLEVELS)) for o in range(NUM_OCTAVES) for s in range(SUBLEVELS)]
+
+
+def _fed_tau_cycle(total_time: float, tau_max: float = 0.24):
+    """Uniform explicit step sizes covering ``total_time`` at the 2-d
+    explicit stability limit."""
+    n = max(1, math.ceil(total_time / tau_max))
+    return [total_time / n] * n
+
+
+def _diffusion_step(L, c, tau: float):
+    """One explicit step of div(c grad L) on the 4-neighbour stencil of
+    [B, H, W], conductivities averaged onto the edges, zero flux across the
+    borders."""
+    cN = 0.5 * (c + torch.roll(c, 1, dims=1))
+    cS = 0.5 * (c + torch.roll(c, -1, dims=1))
+    cW = 0.5 * (c + torch.roll(c, 1, dims=2))
+    cE = 0.5 * (c + torch.roll(c, -1, dims=2))
+    dN = torch.roll(L, 1, dims=1) - L
+    dS = torch.roll(L, -1, dims=1) - L
+    dW = torch.roll(L, 1, dims=2) - L
+    dE = torch.roll(L, -1, dims=2) - L
+    dN[:, 0, :] = 0.0
+    dS[:, -1, :] = 0.0
+    dW[:, :, 0] = 0.0
+    dE[:, :, -1] = 0.0
+    return L + tau * (cN * dN + cS * dS + cW * dW + cE * dE)
+
+
+def _percentile(x, q: float):
+    """Per-row percentile ``q`` of [B, N] float32 with linear interpolation
+    between the sorted neighbours, the weights in float64 (the reference's
+    ``jnp.percentile`` under its tests' x64 mode), rounded to float32."""
+    n = x.shape[1]
+    s = torch.sort(x, dim=1).values
+    index = (q / 100.0) * (n - 1)
+    lo, hi = math.floor(index), math.ceil(index)
+    w = index - lo
+    return (s[:, lo].to(torch.float64) * (1.0 - w) + s[:, hi].to(torch.float64) * w).to(x.dtype)
+
+
+def scale_space(images, diffusion: str = "gaussian"):
+    """[B, H, W] -> (L [S, B, H, W] levels at full resolution, sigmas [S]).
+
+    ``"gaussian"``: the linear scale space (incremental blurs). ``"fed"``:
+    the nonlinear one, the base level blurred to the first sigma, then
+    between levels explicit diffusion steps with the Perona-Malik g2
+    conductivity c = 1 / (1 + |grad L_s|^2 / k^2) from the current level
+    blurred by 1, and k the 70th percentile of the gradient magnitude of the
+    image blurred by 1."""
+    if diffusion not in ("gaussian", "fed"):
+        raise ValueError(f"unknown diffusion {diffusion!r}")
+    sigmas = _level_sigmas()
+    sig_t = torch.tensor(sigmas, dtype=images.dtype, device=images.device)
+    levels = []
+    if diffusion == "gaussian":
+        prev, prev_sigma = images, 0.0
+        for sigma in sigmas:
+            prev = _blur(prev, math.sqrt(max(sigma * sigma - prev_sigma * prev_sigma, 1e-6)))
+            prev_sigma = sigma
+            levels.append(prev)
+        return torch.stack(levels), sig_t
+
+    L = _blur(images, sigmas[0])
+    g1 = _blur(images, 1.0)
+    gx, gy = _conv3(g1, _DX), _conv3(g1, _DY)
+    gmag = torch.sqrt(gx * gx + gy * gy)
+    k = torch.clamp_min(_percentile(gmag.reshape(gmag.shape[0], -1), 70.0), 1e-6)[:, None, None]
+    levels.append(L)
+    prev_t = 0.5 * sigmas[0] ** 2
+    for sigma in sigmas[1:]:
+        t = 0.5 * sigma**2
+        Ls = _blur(L, 1.0)
+        lx, ly = _conv3(Ls, _DX), _conv3(Ls, _DY)
+        c = 1.0 / (1.0 + (lx * lx + ly * ly) / (k * k))
+        taus = _fed_tau_cycle(t - prev_t)
+        for _ in taus:
+            L = _diffusion_step(L, c, taus[0])
+        prev_t = t
+        levels.append(L)
+    return torch.stack(levels), sig_t
 
 
 def _kernels(*ks, device):
@@ -169,16 +255,23 @@ def _candidates_from_levels(Rb, threshold, border, k, step):
     return torch.stack([x, y], dim=-1), vals, lvl, valid
 
 
-def detect(images, max_features: int = 4096, threshold: float = DETECTOR_THRESHOLD):
+def detect(images, max_features: int = 4096, threshold: float = DETECTOR_THRESHOLD, diffusion: str = "gaussian"):
     """Detect up to max_features keypoints per image of [B, H, W].
 
-    Decimated octave pyramid: each octave runs at half the previous
-    resolution and responses are normalised with sigma_rel^4 on the
+    ``"gaussian"``: a decimated octave pyramid; each octave runs at half the
+    previous resolution and responses are normalised with sigma_rel^4 on the
     decimated grid, which equals the absolute normalisation on the original
-    grid. Returns dict with xy [B, K, 2] (x = col, y = row, original
-    pixels), strength [B, K], level [B, K] int64, sigma [B, K], valid [B, K].
+    grid. ``"fed"``: the full-resolution nonlinear scale space
+    (``scale_space``). Returns dict with xy [B, K, 2] (x = col, y = row,
+    original pixels), strength [B, K], level [B, K] int64, sigma [B, K],
+    valid [B, K].
     """
     images = images.to(torch.float32)
+    if diffusion != "gaussian":
+        L, sigmas = scale_space(images, diffusion)
+        Rb = hessian_response(L, sigmas).transpose(0, 1)
+        xy, vals, lvl, valid = _candidates_from_levels(Rb, threshold, 16, max_features, 1.0)
+        return dict(xy=xy, strength=torch.where(valid, vals, 0.0), level=lvl, sigma=sigmas[lvl], valid=valid)
     all_xy, all_vals, all_sig, all_valid, all_lvl = [], [], [], [], []
     base = _blur(images, BASE_SIGMA)
     for o in range(NUM_OCTAVES):
@@ -332,8 +425,10 @@ def describe(images, det, patch_scale: float = PATCH_RADIUS_SIGMAS):
     return pack_bits(bits), angle
 
 
-def extract_features(images, max_features: int = 4096, threshold: float = DETECTOR_THRESHOLD):
-    """Detect + describe a [B, H, W] batch: float in [0, 1] or uint8.
+def extract_features(images, max_features: int = 4096, threshold: float = DETECTOR_THRESHOLD, *,
+                     diffusion: str = "gaussian"):
+    """Detect + describe a [B, H, W] batch: float in [0, 1] or uint8, on the
+    ``"gaussian"`` or the ``"fed"`` scale space (see ``detect``).
 
     Returns dict(xy, strength, sigma, level, valid, angle, descriptors)."""
     if images.dtype == torch.uint8:
@@ -341,7 +436,7 @@ def extract_features(images, max_features: int = 4096, threshold: float = DETECT
         # division: a true division differs in the last bit on a third of the pixels
         images = images.to(torch.float32) * U8_SCALE
     with full_fp32():
-        det = detect(images, max_features=max_features, threshold=threshold)
+        det = detect(images, max_features=max_features, threshold=threshold, diffusion=diffusion)
         desc, angle = describe(images, det)
     return dict(
         xy=det["xy"],

@@ -1,9 +1,11 @@
-"""Two-view homography model (twin of the homography half of
+"""Two-view models: homography, essential, fundamental (twin of
 opencalibration_tpu/ops/models.py).
 
 Functions take homogeneous-normalised 2-d points (x/z, y/z of unit rays) and
 broadcast over leading dims, so a batch of pairs and of hypotheses is one
-call. The epipolar (essential / fundamental) models are not ported yet.
+call. The epipolar fits use the reference's self-consistent convention
+x2h^T M x1h = 0 for both the fit and the error. An eigenvector's sign is the
+solver's choice, so an epipolar model equals the reference's up to sign.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ import torch
 from opencalibration_tpu_torch.ops.quaternion import quat_from_matrix
 
 HOMOGRAPHY_MIN_POINTS = 4
+ESSENTIAL_MIN_POINTS = 5
+FUNDAMENTAL_MIN_POINTS = 8
 HOMOGRAPHY_INLIER_THRESHOLD = 0.005
+ESSENTIAL_INLIER_THRESHOLD = 0.01
+FUNDAMENTAL_INLIER_THRESHOLD = 0.01
 
 _BIG = 1e30
 
@@ -198,3 +204,100 @@ def score_homography_poses(R, t, n, rays1, rays2, inlier_w):
 def poses_to_quaternions(R):
     """[..., 3, 3] -> [..., 4] (w, x, y, z) quaternions."""
     return quat_from_matrix(R)
+
+
+# ---------------------------------------------------------------------------
+# Epipolar models (essential / fundamental)
+# ---------------------------------------------------------------------------
+
+
+def _epipolar_rows(p1, p2):
+    """Rows a with a . vec(M) = x2h^T M x1h, vec row-major: [..., N, 9]."""
+    x, y = p1[..., 0], p1[..., 1]
+    xp, yp = p2[..., 0], p2[..., 1]
+    return torch.stack([xp * x, xp * y, xp, yp * x, yp * y, yp, x, y, torch.ones_like(x)], dim=-1)
+
+
+def _finite_or_eye(A):
+    """(A with non-finite matrices replaced by the identity, finite mask):
+    the CPU eigen and singular value solvers refuse non-finite input."""
+    finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.where(finite[..., None, None], A, eye), finite
+
+
+def _smallest_eigvec_9(AtA):
+    """Eigenvector of the smallest eigenvalue of symmetric [..., 9, 9]; NaN
+    where the input is not finite."""
+    A, finite = _finite_or_eye(AtA)
+    v = torch.linalg.eigh(A)[1][..., :, 0]
+    return torch.where(finite[..., None], v, torch.nan)
+
+
+def _svd3(m):
+    """SVD of [..., 3, 3]; NaN factors where the input is not finite."""
+    A, finite = _finite_or_eye(m)
+    U, d, Vt = torch.linalg.svd(A)
+    ok = finite[..., None]
+    return (torch.where(ok[..., None], U, torch.nan), torch.where(ok, d, torch.nan),
+            torch.where(ok[..., None], Vt, torch.nan))
+
+
+def _fit_epipolar(p1, p2, w, rank2_average: bool):
+    """Weighted algebraic fit [..., N, 2] / w [..., N], projected onto the
+    model's manifold: the two leading singular values averaged (essential)
+    or only the last zeroed (fundamental)."""
+    A = _epipolar_rows(p1, p2)
+    AtA = (A * w[..., None]).transpose(-1, -2) @ A
+    m = _smallest_eigvec_9(AtA).reshape(AtA.shape[:-2] + (3, 3))
+    Um, dm, Vmt = _svd3(m)
+    if rank2_average:
+        avg = 0.5 * (dm[..., 0] + dm[..., 1])
+        dnew = torch.stack([avg, avg, torch.zeros_like(avg)], dim=-1)
+    else:
+        dnew = torch.cat([dm[..., :2], torch.zeros_like(dm[..., 2:])], dim=-1)
+    return (Um * dnew[..., None, :]) @ Vmt
+
+
+def essential_fit(p1, p2):
+    return _fit_epipolar(p1, p2, torch.ones_like(p1[..., 0]), rank2_average=True)
+
+
+def essential_fit_weighted(p1, p2, w):
+    return _fit_epipolar(p1, p2, w, rank2_average=True)
+
+
+def fundamental_fit(p1, p2):
+    return _fit_epipolar(p1, p2, torch.ones_like(p1[..., 0]), rank2_average=False)
+
+
+def fundamental_fit_weighted(p1, p2, w):
+    return _fit_epipolar(p1, p2, w, rank2_average=False)
+
+
+def epipolar_error(M, p1, p2):
+    """Sampson-style epipolar distance of points [..., N, 2] under M
+    [..., 3, 3] -> [..., N]."""
+    o = torch.ones_like(p1[..., :1])
+    x1 = torch.cat([p1, o], dim=-1)
+    x2 = torch.cat([p2, o], dim=-1)
+    Mx1 = x1 @ M.transpose(-1, -2)
+    Mtx2 = x2 @ M
+    num = torch.sum(x2 * Mx1, dim=-1)
+    denom = Mx1[..., 0] ** 2 + Mx1[..., 1] ** 2 + Mtx2[..., 0] ** 2 + Mtx2[..., 1] ** 2
+    e = torch.sqrt(num * num / torch.clamp_min(denom, 1e-20))
+    e = torch.where(denom < 1e-20, _BIG, e)
+    return torch.where(torch.isfinite(e), e, _BIG)
+
+
+def essential_decompose(E):
+    """SVD decomposition of [..., 3, 3] into 4 (R, t) candidates:
+    (R [..., 4, 3, 3], t [..., 4, 3])."""
+    U, _, Vt = _svd3(E)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype, device=E.device)
+    R1 = U @ W @ Vt
+    R2 = U @ W.transpose(-1, -2) @ Vt
+    R1 = torch.where((torch.linalg.det(R1) < 0)[..., None, None], -R1, R1)
+    R2 = torch.where((torch.linalg.det(R2) < 0)[..., None, None], -R2, R2)
+    t = U[..., :, 2]
+    return torch.stack([R1, R1, R2, R2], dim=-3), torch.stack([t, -t, t, -t], dim=-2)

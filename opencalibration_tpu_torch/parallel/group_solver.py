@@ -1,15 +1,20 @@
 """Solve the relax groups of one stage (twin of
 opencalibration_tpu/parallel/group_solver.py on one device).
 
-Two paths:
+Three paths:
 
-* ``solve_groups``: groups that share nothing are solved one after another on
-  the device, each in its own layout. The reference pads them to one layout
-  and solves them in one vmapped dispatch; its padded slots are frozen and
-  carry no residuals, so each group's answer does not depend on the padding.
-  The choice between the dense and the matrix-free solver does depend on it:
-  the reference routes by the padded batch layout, and so does the port
+* ``build_group_batch`` + ``solve_group_batch``: groups that share nothing are
+  padded to one layout, stacked along a leading group axis and solved in one
+  LM over that axis (``lm.solve_batch``, one lane a group), as the reference
+  solves them in one vmapped dispatch. The group count is bucketed to a power
+  of two with fully frozen copies of group 0, which stop after one
+  iteration. The padded slots are frozen and carry no residuals, so each
+  group's answer does not depend on the padding; the choice between the dense
+  and the matrix-free solver does: it follows the padded batch layout
   (``batch_layout``).
+* ``solve_groups``: the same groups solved one after another, each in its own
+  layout, routed by the batch layout too (the stage's
+  ``use_batched_solver=False``).
 * ``build_group_batch(shared_intrinsics=True)`` + ``solve_group_batch_shared``:
   groups that optimise the SAME camera models are padded to one layout,
   stacked along a leading group axis with their intrinsics aligned on one
@@ -30,6 +35,7 @@ all-zero block of it.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -332,6 +338,110 @@ def refresh_group_batch(batch: GroupBatch) -> GroupBatch:
             blk = dataclasses.replace(blk, data=dict(blk.data, target=_restack(blk, builts, "target", rows)))
         blocks.append(blk)
     return dataclasses.replace(batch, params=params, free=free, surface_free=surface_free, blocks=tuple(blocks))
+
+
+# ---------------------------------------------------------------------------
+# All groups in one solve
+# ---------------------------------------------------------------------------
+
+# groups per solve at most (a power of two is taken below it); unset or 0: all
+# groups in one. Each lane holds its own normal equations, so this bounds the
+# device memory of a survey with many groups; the reference reads the same
+# variable
+MAX_GROUPS_ENV = "OC_TPU_MAX_GROUPS_PER_DISPATCH"
+
+
+def pad_lanes(batch: GroupBatch, lanes: int) -> GroupBatch:
+    """The batch with ``lanes - num_groups`` copies of group 0 appended, every
+    slot of a copy frozen: a frozen lane's step is exactly 0, so it stops
+    after one iteration and never holds the loop open."""
+    pad = lanes - batch.num_groups
+    if pad <= 0:
+        return batch
+
+    def dup(x):
+        return torch.cat([x] + [x[:1]] * pad)
+
+    frozen = torch.zeros((pad, batch.layout.dim), dtype=torch.bool, device=batch.free.device)
+    return dataclasses.replace(
+        batch,
+        params=RelaxParams(**{f: dup(getattr(batch.params, f)) for f in FIELDS}),
+        blocks=tuple(dataclasses.replace(b, slots=dup(b.slots), weight=dup(b.weight),
+                                         data={k: dup(v) for k, v in b.data.items()}) for b in batch.blocks),
+        free=torch.cat([batch.free, frozen]), surface_free=torch.cat([batch.surface_free, frozen]),
+    )
+
+
+def _lanes(tree, lo: int, hi: int):
+    """Lanes [lo, hi) of a stacked RelaxParams or BlockSpec (views)."""
+    if isinstance(tree, RelaxParams):
+        return RelaxParams(**{f: getattr(tree, f)[lo:hi] for f in FIELDS})
+    return dataclasses.replace(
+        tree, slots=tree.slots[lo:hi], weight=tree.weight[lo:hi], data={k: v[lo:hi] for k, v in tree.data.items()}
+    )
+
+
+def _solve_batch(params, blocks, free, surface_free, layout, pre_solve, max_iterations, init_lambda):
+    """The surface-only pre-solve of every lane when ``pre_solve``, then the
+    full solve of every lane from ``init_lambda`` [G]. A single lane runs
+    ``lm.solve``, the same LM without the lane axis: 2,076 launches an
+    iteration on the card against 2,151 for one lane of ``lm.solve_batch``
+    (``tools/torch_lm_profile.py``, PERF.md)."""
+    if free.shape[0] == 1:
+        p, blks = _group(params, 0), [_group(b, 0) for b in blocks]
+        if pre_solve:
+            p, _ = lm.solve(p, blks, layout, surface_free[0], max_iterations=max_iterations)
+        p, info = lm.solve(p, blks, layout, free[0], max_iterations=max_iterations, init_lambda=init_lambda[0])
+        lane = {k.name: torch.as_tensor(getattr(info, k.name), device=free.device)[None]
+                for k in dataclasses.fields(lm.SolveInfo)}
+        return RelaxParams(**{f: getattr(p, f)[None] for f in FIELDS}), lm.SolveInfo(**lane)
+    if pre_solve:
+        params, _ = lm.solve_batch(params, blocks, layout, surface_free, max_iterations=max_iterations)
+    return lm.solve_batch(params, blocks, layout, free, max_iterations=max_iterations, init_lambda=init_lambda)
+
+
+def solve_group_batch(
+    batch: GroupBatch,
+    pre_solve: bool,
+    max_iterations: int = lm.DEFAULT_MAX_ITERATIONS,
+    devices=None,
+    init_lambda=None,
+) -> Tuple[RelaxParams, lm.SolveInfo]:
+    """Solve every group of a batch built with ``shared_intrinsics=False`` in
+    one LM over the group axis. The group count is bucketed to a power of two
+    by frozen copies of group 0; with ``OC_TPU_MAX_GROUPS_PER_DISPATCH`` set
+    the lanes are solved in chunks of the largest power of two not above it.
+    Each group's full solve starts from ``init_lambda`` [G], else from the
+    batch's ``warm_lambda`` (the last solve's final damping), clipped into
+    ``WARM_LAMBDA_RANGE``, else from 1. Returns (solved params [G-stacked],
+    SolveInfo with [G] leaves); the final dampings are kept on the batch.
+    ``devices``: one device only (the batch's); several are the multi-device
+    path."""
+    if devices is not None and len(list(devices)) > 1:
+        raise NotImplementedError("Slice E: solving the groups across several devices")
+    G = batch.num_groups
+    lanes = _bucket(G, minimum=1)
+    dtype, dev = batch.params.quats.dtype, batch.free.device
+    if init_lambda is None and batch.warm_lambda is not None:
+        init_lambda = batch.warm_lambda[0]
+    lam0 = torch.ones(lanes, dtype=dtype, device=dev)
+    if init_lambda is not None:
+        lam0[:G] = torch.clamp(torch.as_tensor(init_lambda, device=dev).to(dtype), *WARM_LAMBDA_RANGE)
+    padded = pad_lanes(batch, lanes)
+    chunk = int(os.environ.get(MAX_GROUPS_ENV) or 0)
+    chunk = 1 << (chunk.bit_length() - 1) if 0 < chunk < lanes else lanes
+    parts = []
+    for lo in range(0, lanes, chunk):
+        hi = lo + chunk
+        parts.append(_solve_batch(
+            _lanes(padded.params, lo, hi), tuple(_lanes(b, lo, hi) for b in padded.blocks), padded.free[lo:hi],
+            padded.surface_free[lo:hi], padded.layout, pre_solve, max_iterations, lam0[lo:hi],
+        ))
+    solved = RelaxParams(**{f: torch.cat([getattr(s, f) for s, _ in parts])[:G] for f in FIELDS})
+    info = lm.SolveInfo(**{k.name: torch.cat([getattr(i, k.name) for _, i in parts])[:G]
+                           for k in dataclasses.fields(lm.SolveInfo)})
+    batch.warm_lambda = (info.final_lambda, None)
+    return solved, info
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,12 @@ opencalibration_tpu/pipeline/stages.py).
   CUDA device each chunk is matched by one launch of the hand-written
   Hamming top-2 kernel;
 * RelaxStage: spectral clustering into bounded groups, each built as one
-  relax problem (with a depth-2 halo of neighbours when there is one group)
-  and solved on the device; a ``RelaxPlan`` carries the built problems and
-  their final damping from one pass of a relax state to the next. Several
-  groups that optimise intrinsics are stacked into one batch and solved
-  jointly with their camera models shared
+  relax problem (with a depth-2 halo of neighbours when there is one group),
+  stacked into one batch and solved on the device in one LM over the group
+  axis (``group_solver.solve_group_batch``); a ``RelaxPlan`` carries the
+  built problems and the batch, with its final damping, from one pass of a
+  relax state to the next. Several groups that optimise intrinsics are
+  solved jointly with their camera models shared
   (``group_solver.solve_group_batch_shared``);
 * ``refit_all_edges``: after the intrinsics changed, every edge's homography
   is fitted again from its previous inliers and decomposed, in buckets of
@@ -60,6 +61,7 @@ from opencalibration_tpu_torch.parallel.group_solver import (
     extract_group_params,
     fetch_solved,
     refresh_group_batch,
+    solve_group_batch,
     solve_group_batch_shared,
     solve_groups,
 )
@@ -438,26 +440,31 @@ class RelaxPlan:
     the groups and their built problems. The pipeline owns the cache key
     (graph, mesh and option structure); ``RelaxStage`` refreshes the
     problems' values on each reuse (``problem_builder.refresh_problem``)
-    and warm-starts each group's damping from the previous pass."""
+    and warm-starts each group's damping from the previous pass (the
+    batch's ``warm_lambda``, or ``warm_lambda`` on the serial route)."""
 
     key: tuple
     groups: List[RelaxGroupState]
     builts: list  # Optional[BuiltProblem] per group
     pre_solve: bool
-    warm_lambda: Optional[list] = None  # final damping per live group
-    batch: object = None  # the stacked GroupBatch of a shared-intrinsics solve
+    warm_lambda: Optional[list] = None  # final damping per live group (serial route)
+    batch: object = None  # the stacked GroupBatch of the live groups
 
 
 class RelaxStage:
     """Spectral-clustered group relaxation. Each group is built as one relax
-    problem in ``dispatch`` (host work plus the per-row device pass) and
-    solved in ``join`` in the stage's ``dtype`` on its ``device``: one group
-    after another, or, when several groups optimise intrinsics, as one joint
-    problem with the camera models and the surface shared."""
+    problem in ``dispatch`` (host work plus the per-row device pass), the
+    live groups are stacked into one batch, and ``join`` solves it in the
+    stage's ``dtype`` on its ``device``: all groups in one LM over the group
+    axis, or, when several groups optimise intrinsics, as one joint problem
+    with the camera models and the surface shared.
+    ``use_batched_solver=False`` solves groups that share nothing one after
+    another instead (``solve_groups``)."""
 
-    def __init__(self, *, device="cuda", dtype=torch.float32):
+    def __init__(self, *, device="cuda", dtype=torch.float32, use_batched_solver: bool = True):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.use_batched_solver = use_batched_solver
         self._groups: List[RelaxGroupState] = []
         self._options = RelaxOptions()
         self._surfaces: List[SurfaceModel] = []
@@ -655,14 +662,16 @@ class RelaxStage:
             return
         self.last_plan = RelaxPlan(key=(), groups=self._groups, builts=builts, pre_solve=pre_solve)
         # several groups optimising the SAME camera models: one joint solve
-        # with the intrinsics (and the surface) shared across the groups
+        # with the intrinsics (and the surface) shared across the groups;
+        # otherwise one batched solve of independent lanes
+        shared = self._options.any_intrinsics and len(live) > 1
         batch = None
-        if self._options.any_intrinsics and len(live) > 1:
+        if shared or self.use_batched_solver:
             with PerformanceMeasure("relax batch groups"):
-                if cached_batch is not None and cached_batch.shared_intrinsics:
+                if cached_batch is not None and cached_batch.shared_intrinsics == shared:
                     batch = refresh_group_batch(cached_batch)  # values, masks and anchors only
                 else:
-                    batch = build_group_batch([builts[i] for i in live], shared_intrinsics=True)
+                    batch = build_group_batch([builts[i] for i in live], shared_intrinsics=shared)
             self.last_plan.batch = batch
         self._inflight = (builts, live, pre_solve, warm, batch)
 
@@ -676,8 +685,9 @@ class RelaxStage:
         iters = self.max_lm_iterations or DEFAULT_MAX_ITERATIONS
         with PerformanceMeasure("relax solve"):
             if batch is not None:
-                stacked, info = solve_group_batch_shared(batch, pre_solve, max_iterations=iters)
-                add_event_count("lm iterations", float(info.iterations))
+                solve = solve_group_batch_shared if batch.shared_intrinsics else solve_group_batch
+                stacked, info = solve(batch, pre_solve, max_iterations=iters)
+                add_event_count("lm iterations", float(info.iterations.sum()))
                 stacked = fetch_solved(stacked)
                 solved = [extract_group_params(batch, stacked, k) for k in range(len(live))]
             else:

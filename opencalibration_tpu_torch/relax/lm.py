@@ -28,11 +28,10 @@ import dataclasses
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch.func import jacfwd, vmap
 
 from opencalibration_tpu_torch.relax.blocks import BlockSpec
-from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
+from opencalibration_tpu_torch.relax.tangent import FIELDS, RelaxParams, TangentLayout
 from opencalibration_tpu_torch.utils.device import full_fp32
 
 DEFAULT_MAX_ITERATIONS = 100
@@ -82,7 +81,8 @@ def _accumulate_hg(H, g, JtJ, Jtr, slots):
     T = H.shape[0]
     for c0 in range(0, slots.shape[0], _ASSEMBLE_CHUNK):
         sl = slots[c0 : c0 + _ASSEMBLE_CHUNK]
-        O = F.one_hot(sl, T).to(JtJ.dtype)
+        # the one-hot as a comparison: F.one_hot has no batching rule
+        O = (sl[..., None] == torch.arange(T, device=sl.device)).to(JtJ.dtype)
         H = H + torch.einsum("blm,blt,bms->ts", JtJ[c0 : c0 + _ASSEMBLE_CHUNK], O, O)
         g = g + torch.einsum("bl,blt->t", Jtr[c0 : c0 + _ASSEMBLE_CHUNK], O)
     return H, g
@@ -325,9 +325,10 @@ def _jacobi_solve(A, b):
     """Solve A x = b as (S A S)(S^-1 x) = S b with S = diag(A)^-1/2, which
     keeps the float32 factorisation well-conditioned across rotation, mesh
     and focal units. ``solve_ex`` neither raises nor waits for the device
-    on a singular system: the non-finite step is rejected by the caller."""
-    s = torch.rsqrt(torch.clamp(torch.diagonal(A), 1e-24, 1e32))
-    As = A * s[:, None] * s[None, :]
+    on a singular system: the non-finite step is rejected by the caller.
+    Leading axes of ``A`` [..., T, T] and ``b`` [..., T] are lanes."""
+    s = torch.rsqrt(torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), 1e-24, 1e32))
+    As = A * s[..., :, None] * s[..., None, :]
     return s * torch.linalg.solve_ex(As, s * b)[0]
 
 
@@ -337,6 +338,24 @@ class SolveInfo:
     final_cost: torch.Tensor
     iterations: torch.Tensor
     final_lambda: torch.Tensor  # damping at exit, to warm-start a repeat solve
+
+
+def _lm_update(cost, new_cost, pred, lam, nu, step_max, parameter_tolerance, function_tolerance):
+    """One LM step's decision, elementwise (a scalar, or [G] lanes): the
+    gain-ratio acceptance, the Nielsen damping schedule and the stop tests,
+    from the cost before and after the step, the damped model's predicted
+    decrease ``pred`` and the step's largest entry. Returns (accept, lam,
+    nu, done) after the step."""
+    rho = (cost - new_cost) / torch.clamp_min(pred, 1e-30)
+    accept = torch.isfinite(new_cost) & (new_cost < cost) & (pred > 0)
+    # Nielsen: a good model (rho ~ 1) cuts lambda up to 3x, a poor one
+    # barely; consecutive rejects escalate geometrically
+    shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+    lam = torch.where(accept, torch.clamp(lam * shrink, 1e-12, 1e12), torch.clamp_max(lam * nu, 1e12))
+    nu = torch.where(accept, 2.0, torch.clamp_max(nu * 2.0, 1e6))
+    step_small = step_max < parameter_tolerance
+    cost_flat = accept & ((cost - new_cost) < function_tolerance * torch.clamp_min(cost, 1e-30))
+    return accept, lam, nu, step_small | cost_flat | (lam > 1e10)
 
 
 def route(dim: int) -> str:
@@ -425,30 +444,219 @@ def _solve_impl(params, blocks, layout, free_mask, max_iterations, init_lambda,
 
         p_new = layout.retract(p, delta)
         new_cost = total_cost(p_new, blocks)
-        rho = (cost - new_cost) / torch.clamp_min(pred, 1e-30)
-        accept = torch.isfinite(new_cost) & (new_cost < cost) & (pred > 0)
-
+        accept, lam, nu, done = _lm_update(cost, new_cost, pred, lam, nu, torch.max(torch.abs(delta)),
+                                           parameter_tolerance, function_tolerance)
         p = p.where(accept, p_new)
-        cost_next = torch.where(accept, new_cost, cost)
-        # Nielsen: a good model (rho ~ 1) cuts lambda up to 3x, a poor one
-        # barely; consecutive rejects escalate geometrically
-        shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-        lam = torch.where(
-            accept,
-            torch.clamp(lam * shrink, 1e-12, 1e12),
-            torch.clamp_max(lam * nu, 1e12),
-        )
-        nu = torch.where(accept, scalar(2.0), torch.clamp_max(nu * 2.0, 1e6))
-
-        step_small = torch.max(torch.abs(delta)) < parameter_tolerance
-        cost_flat = accept & (
-            (cost - new_cost) < function_tolerance * torch.clamp_min(cost, 1e-30)
-        )
-        done = step_small | cost_flat | (lam > 1e10)
-        cost = cost_next
+        cost = torch.where(accept, new_cost, cost)
         it += 1
 
     return p, SolveInfo(
         initial_cost=cost0, final_cost=cost, iterations=torch.tensor(it, dtype=torch.int32),
         final_lambda=lam,
     )
+
+
+# ---------------------------------------------------------------------------
+# The LM over a leading lane axis (the reference's ``vmap`` of ``solve``):
+# params, block leaves and masks carry [G, ...]; every lane keeps its own
+# damping, cost, stop flag and iteration count, and a finished lane holds its
+# state while the others run on.
+# ---------------------------------------------------------------------------
+
+
+def _lane_call(fn, params: RelaxParams, blocks, *args):
+    """``fn(params, blocks, *args)`` of one lane, mapped over the leading lane
+    axis of the params, the block leaves (slots, weight, data) and ``args``."""
+
+    def lane(fields, leaves, *a):
+        blks = [dataclasses.replace(b, slots=s, weight=w, data=d) for b, (s, w, d) in zip(blocks, leaves)]
+        return fn(RelaxParams(*fields), blks, *a)
+
+    fields = tuple(getattr(params, f) for f in FIELDS)
+    return vmap(lane)(fields, [(b.slots, b.weight, b.data) for b in blocks], *args)
+
+
+def _lane_where(cond, a, b):
+    """``a if cond else b`` per lane for a [G] condition and [G, ...] values."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def _params_where(cond, a: RelaxParams, b: RelaxParams) -> RelaxParams:
+    return RelaxParams(**{f: _lane_where(cond, getattr(a, f), getattr(b, f)) for f in FIELDS})
+
+
+def _lane_offsets(blk, T):
+    """Slots of every lane moved to the lane's own range [g T, (g + 1) T)."""
+    G = blk.slots.shape[0]
+    return blk.slots + T * torch.arange(G, device=blk.slots.device).reshape((G,) + (1,) * (blk.slots.ndim - 1))
+
+
+def _flat_lanes(parts):
+    """Per-family [G, ...] contributions flattened lane-major: lane g's values
+    of every family (family order, then instance order, as one lane alone
+    lays them out), then lane g + 1's."""
+    G = parts[0].shape[0]
+    return torch.cat([p.reshape(G, -1) for p in parts], dim=1).reshape(-1)
+
+
+def _lane_slot_order(blocks, T) -> SegmentOrder:
+    """The sorted-segment order of every lane's slots over G T segments: a
+    lane's sums run in the order of its own solve's ``_flat_slot_order``."""
+    G = blocks[0].slots.shape[0]
+    return _segment_order(_flat_lanes([_lane_offsets(b, T) for b in blocks]), G * T)
+
+
+def _lane_scatter(parts, order: SegmentOrder, G):
+    return _segment_sum(_flat_lanes(parts), order).reshape(G, -1)
+
+
+def _lane_gather(v, slots):
+    """v[g, slots[g]] for every lane: [G, T] and [G, B, L] -> [G, B, L]."""
+    G = v.shape[0]
+    return torch.gather(v, 1, slots.reshape(G, -1)).reshape(slots.shape)
+
+
+def _lane_matvec(v, quads, blocks, order):
+    parts = [torch.einsum("gblm,gbm->gbl", JtJ, _lane_gather(v, blk.slots)) for (JtJ, _), blk in zip(quads, blocks)]
+    return _lane_scatter(parts, order, v.shape[0])
+
+
+def _lane_diag(quads, blocks, order, G):
+    parts = []
+    for (JtJ, _), blk in zip(quads, blocks):
+        eq = (blk.slots[..., :, None] == blk.slots[..., None, :]).to(JtJ.dtype)
+        parts.append(torch.sum(JtJ * eq, dim=-1))
+    return _lane_scatter(parts, order, G)
+
+
+def _lane_pcg(matvec, b, pre_apply, rtol, max_iters, live):
+    """``_pcg`` of every lane at once ([G, T] vectors, [G] scalars). Each lane
+    runs until its own stop test holds and then holds its state; lanes that
+    are not ``live`` (their LM is done) start stopped. The host reads whether
+    any lane is still active every ``_CG_CHECK_EVERY`` iterations."""
+    bb = torch.sum(b * b, dim=-1)
+    tol2 = (rtol * rtol) * torch.clamp_min(bb, 1e-38)
+    z0 = pre_apply(b)
+    x, r, p = torch.zeros_like(b), b, z0
+    rz = torch.sum(b * z0, dim=-1)
+    done = (bb <= 0.0) | ~live
+    for k in range(max_iters):
+        active = (~done) & (torch.sum(r * r, dim=-1) > tol2)
+        if k and k % _CG_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap, dim=-1)
+        ok = (pAp > 0) & torch.isfinite(pAp)
+        alpha = torch.where(ok, rz / torch.clamp_min(pAp, 1e-38), 0.0)
+        x_new = x + alpha[:, None] * p
+        r_new = r - alpha[:, None] * Ap
+        z = pre_apply(r_new)
+        rz_new = torch.sum(r_new * z, dim=-1)
+        beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-38), 0.0)
+        p_new = z + beta[:, None] * p
+        x = _lane_where(active, x_new, x)
+        r = _lane_where(active, r_new, r)
+        p = _lane_where(active, p_new, p)
+        rz = torch.where(active, rz_new, rz)
+        done = torch.where(active, done | ~ok, done)
+    return x, r
+
+
+def solve_batch(
+    params: RelaxParams,
+    blocks: Sequence[BlockSpec],
+    layout: TangentLayout,
+    free_mask,
+    max_iterations: int = DEFAULT_MAX_ITERATIONS,
+    init_lambda=1.0,
+    parameter_tolerance: float = 1e-8,
+    function_tolerance: float = 1e-6,
+    linear_solver: str = "auto",
+):
+    """``solve`` over a leading lane axis: the leaves of ``params`` and of
+    every block, and ``free_mask``, carry [G, ...]; ``init_lambda`` is a
+    scalar or [G]. Each lane runs the single solve's LM: its own damping,
+    Nielsen schedule, gain-ratio acceptance and stop tests; a lane that is
+    done holds its state (the reference's ``vmap`` of its while-loop). The
+    loop ends when every lane is done or at ``max_iterations``, with one
+    host read per iteration. The route follows ``layout.dim`` as in
+    ``solve``; the CG route takes the scalar Jacobi preconditioner, as the
+    reference's batched solve does. Returns (params [G, ...], SolveInfo
+    with [G] leaves)."""
+    if linear_solver == "auto":
+        linear_solver = route(layout.dim)
+    if linear_solver not in ("cholesky", "cg"):
+        raise ValueError(f"unknown linear solver {linear_solver!r}")
+    with full_fp32():
+        return _solve_batch_impl(
+            params, tuple(blocks), layout, free_mask, max_iterations, init_lambda,
+            parameter_tolerance, function_tolerance, linear_solver,
+        )
+
+
+def _solve_batch_impl(params, blocks, layout, free_mask, max_iterations, init_lambda,
+                      parameter_tolerance, function_tolerance, linear_solver):
+    dtype, dev = params.quats.dtype, params.quats.device
+    free = torch.as_tensor(free_mask, device=dev)
+    G, T = free.shape
+    frozen = (~free).to(dtype)
+
+    def lane_cost(p):
+        return _lane_call(total_cost, p, blocks)
+
+    def retract(p, delta):
+        def one(fields, d):
+            q = layout.retract(RelaxParams(*fields), d)
+            return tuple(getattr(q, f) for f in FIELDS)
+
+        return RelaxParams(*vmap(one)(tuple(getattr(p, f) for f in FIELDS), delta))
+
+    if linear_solver == "cg":
+        order = _lane_slot_order(blocks, T)
+
+    cost0 = lane_cost(params)
+    p, cost = params, cost0
+    lam = torch.as_tensor(init_lambda, dtype=dtype, device=dev).expand(G).clone()
+    nu = torch.full((G,), 2.0, dtype=dtype, device=dev)
+    done = ~torch.isfinite(cost0)
+    iterations = torch.zeros(G, dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iterations and not bool(done.all()):  # one host sync per iteration
+        live = ~done
+        if linear_solver == "cg":
+            quads = _lane_call(lambda q, b, fr: _quads_all(q, b, fr), p, blocks, free)
+            g = _lane_scatter([Jtr for _, Jtr in quads], order, G)
+            diag = torch.clamp(_lane_diag(quads, blocks, order, G), 1e-10, 1e32)
+            damp = lam[:, None] * diag + frozen
+
+            def matvec(v):
+                return _lane_matvec(v, quads, blocks, order) + damp * v
+
+            pre_diag = diag + damp
+            delta, r_cg = _lane_pcg(matvec, -g, lambda r: r / pre_diag, CG_RTOL, CG_MAX_ITERS, live)
+            delta = torch.where(free, delta, 0.0)
+            pred = 0.5 * (torch.sum(delta * r_cg, dim=-1) - torch.sum(delta * g, dim=-1))
+        else:
+            H, g = _lane_call(lambda q, b, fr: normal_equations(q, b, layout, fr), p, blocks, free)
+            diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
+            A = H + torch.diag_embed(lam[:, None] * diag) + torch.diag_embed(frozen)
+            delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
+            pred = 0.5 * torch.sum(delta * (lam[:, None] * diag * delta - g), dim=-1)
+
+        p_new = retract(p, delta)
+        new_cost = lane_cost(p_new)
+        accept, lam_next, nu_next, done_next = _lm_update(
+            cost, new_cost, pred, lam, nu, torch.amax(torch.abs(delta), dim=-1), parameter_tolerance,
+            function_tolerance)
+
+        # a lane that was done before this iteration holds its state
+        step = live & accept
+        p = _params_where(step, p_new, p)
+        cost = torch.where(step, new_cost, cost)
+        lam = torch.where(live, lam_next, lam)
+        nu = torch.where(live, nu_next, nu)
+        done = torch.where(live, done_next, done)
+        iterations = iterations + live.to(torch.int32)
+        it += 1
+
+    return p, SolveInfo(initial_cost=cost0, final_cost=cost, iterations=iterations, final_lambda=lam)

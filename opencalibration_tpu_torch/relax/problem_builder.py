@@ -1,6 +1,6 @@
-"""Build relax problems from the measurement graph (twin of the
-decomposition, ground-plane and ground-mesh parts of
-opencalibration_tpu/relax/problem_builder.py, with ``refresh_problem``).
+"""Build relax problems from the measurement graph (twin of
+opencalibration_tpu/relax/problem_builder.py: the decomposition,
+ground-plane, ground-mesh and 3-d point problems, with ``refresh_problem``).
 
 The host half is numpy, as in the reference: gather cameras and edges,
 pick measurements (composite-score grid filter, triangle assignment), pad
@@ -14,9 +14,9 @@ With intrinsics in the options a mesh problem takes the pixel form of the
 plane-ray block (focal, principal point and radial terms of one shared
 INVERSE model per camera model in the tangent) and the radial monotonicity
 prior; ``apply_solution`` converts a changed INVERSE model back to a FORWARD
-one. ``points_3d`` problems are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item rather than build a
-smaller problem.
+one. A 3-d point problem optimises one point per kept inlier match with
+pixel reprojection residuals against the FORWARD models, whose intrinsics
+are then in the tangent themselves.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ class BuiltProblem:
     track_errors: np.ndarray  # [N]
     # structure-cache metadata (refresh_problem): problem family, count of
     # optimised (non-halo) camera slots, real (unpadded) mesh vertex count
-    kind: str = "mesh"  # "mesh" | "decomposition"
+    kind: str = "mesh"  # "mesh" | "points" | "decomposition"
     num_opt: int = 0
     v_real: int = 0
 
@@ -557,6 +557,173 @@ def build_mesh_problem(
     )
 
 
+def _np_ray_error(rays1_w, rays2_w, pos1, pos2):
+    """Signed squared inter-ray distance of world rays from two positions
+    (numpy; ``ray_intersection``'s error, negative behind either camera)."""
+    n1dn1 = np.sum(rays1_w * rays1_w, axis=-1)
+    n1dn2 = np.sum(rays1_w * rays2_w, axis=-1)
+    n2dn2 = np.sum(rays2_w * rays2_w, axis=-1)
+    denom = n1dn1 * n2dn2 - n1dn2 * n1dn2
+    offset = pos1[None] - pos2[None]
+    odn1 = np.sum(offset * rays1_w, axis=-1)
+    odn2 = np.sum(offset * rays2_w, axis=-1)
+    denom_safe = np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+    t1 = (n1dn2 * odn2 - n2dn2 * odn1) / denom_safe
+    t2 = (n1dn1 * odn2 - n1dn2 * odn1) / denom_safe
+    p1 = pos1[None] + t1[:, None] * rays1_w
+    p2 = pos2[None] + t2[:, None] * rays2_w
+    err = np.sum((p1 - p2) ** 2, axis=-1)
+    return np.where((t1 < 0) | (t2 < 0), -err, err)
+
+
+def _grid_filter_edge(pixels1, pixels2, rays1_w, rays2_w, pos1, pos2, distances, ransac_H, dims1, dims2,
+                      cell_fraction: float):
+    """Composite-score grid filter of one edge's inliers (numpy): the best
+    row per grid cell in either image by triangulation, ray angle,
+    descriptor distance and homography transfer. Returns the keep mask."""
+    n = len(pixels1)
+    if n == 0:
+        return np.zeros(0, bool)
+    err = _np_ray_error(rays1_w, rays2_w, pos1, pos2)
+    inter_score = np.where(err < 0, 0.0, 1.0 / (1.0 + err))
+    angle_score = 1.0 - np.sum(rays1_w * rays2_w, axis=1) ** 2
+    desc_score = 1.0 - np.asarray(distances)
+    if ransac_H is not None and np.isfinite(ransac_H).all():
+        dst = np.concatenate([pixels1, np.ones((n, 1))], axis=1) @ ransac_H.T
+        dst = dst[:, :2] / np.where(np.abs(dst[:, 2:3]) < 1e-12, 1e-12, dst[:, 2:3])
+        ransac_score = 1.0 / (1.0 + np.linalg.norm(dst - pixels2, axis=1))
+    else:
+        ransac_score = np.ones(n)
+    score = inter_score * angle_score * desc_score * ransac_score
+    keep = np.zeros(n, bool)
+    for pixels, dims in ((pixels1, dims1), (pixels2, dims2)):
+        gx = np.floor(pixels[:, 0] / dims[0] / cell_fraction).astype(np.int64)
+        gy = np.floor(pixels[:, 1] / dims[1] / cell_fraction).astype(np.int64)
+        cells = gx * 100000 + gy
+        order = np.lexsort((-score, cells))
+        first = np.ones(n, bool)
+        first[1:] = cells[order][1:] != cells[order][:-1]
+        best = order[first]
+        keep[best[score[best] > 0]] = True
+    return keep
+
+
+def build_points_problem(
+    graph: MeasurementGraph,
+    node_poses: Sequence[NodePose],
+    cam_models: Dict[int, CameraModel],
+    edge_ids: Sequence[int],
+    options: RelaxOptions,
+    grid_fraction: float = 0.05,
+    *,
+    dtype,
+    device,
+) -> Optional[BuiltProblem]:
+    """3-d point bundle adjustment: every inlier match the grid filter keeps
+    (at ``grid_fraction`` of the image) becomes one point, triangulated from
+    its two rays, with one pixel-reprojection residual pair in each camera
+    against the FORWARD camera models. With any intrinsics option the
+    radial monotonicity prior is built, switched by its weight. Points are
+    always free; rotations follow ``options.orientation``."""
+    floats, ids, _ = _tensors(dtype, device)
+    cam_index, quats, positions, opt = _gather_cameras(graph, node_poses, edge_ids)
+    if len(quats) < 2:
+        return None
+    edge_list = _usable_edges(graph, cam_index, edge_ids)
+    if not edge_list:
+        return None
+
+    def on_device(m: CameraModel) -> CameraModel:
+        return m.map(lambda x: x.to(device=device, dtype=dtype))
+
+    model_index: Dict[int, int] = {}
+    fwd_list = []
+    for mid, m in sorted(cam_models.items()):
+        model_index[mid] = len(fwd_list)
+        fwd_list.append(on_device(m))
+    if not fwd_list:
+        return None
+    node_model = {nid: graph.get_node(nid).payload.model_id for nid in cam_index}
+    fwd_models = {mid: fwd_list[k] for mid, k in model_index.items()}
+
+    pts_list, err_list = [], []
+    obs = dict(cam_i=[], point_i=[], model_i=[], pixel=[])
+    for edge_id in edge_list:
+        e = graph.get_edge(edge_id)
+        rel = e.payload
+        n = len(rel.inlier_idx1)
+        s_model, d_model = fwd_models.get(node_model[e.source]), fwd_models.get(node_model[e.dest])
+        if n == 0 or s_model is None or d_model is None:
+            continue
+        px1 = np.asarray(rel.inlier_pixel1, np.float64)
+        px2 = np.asarray(rel.inlier_pixel2, np.float64)
+        r1, r2 = D.distort_keypoints(floats(px1), floats(px2), s_model, d_model)
+        q1, q2 = quats[cam_index[e.source]], quats[cam_index[e.dest]]
+        p1w, p2w = positions[cam_index[e.source]], positions[cam_index[e.dest]]
+        r1w = interop.to_numpy(quat_rotate(floats(q1)[None], r1)).astype(np.float64)
+        r2w = interop.to_numpy(quat_rotate(floats(q2)[None], r2)).astype(np.float64)
+        dist = (np.asarray(rel.match_distance)[np.asarray(rel.inlier_match_index)]
+                if len(rel.match_distance) else np.zeros(n))
+        dims1 = (float(s_model.pixels_cols), float(s_model.pixels_rows))
+        dims2 = (float(d_model.pixels_cols), float(d_model.pixels_rows))
+        keep = _grid_filter_edge(px1, px2, r1w, r2w, p1w, p2w, dist, np.asarray(rel.ransac_relation),
+                                 dims1, dims2, grid_fraction)
+        if not keep.any():
+            continue
+        k = np.where(keep)[0]
+        mid, err = ray_intersection(floats(r1w[k]), floats(np.repeat(p1w[None], len(k), 0)),
+                                    floats(r2w[k]), floats(np.repeat(p2w[None], len(k), 0)))
+        mid, err = interop.to_numpy(mid), interop.to_numpy(err)
+        finite = np.isfinite(mid).all(axis=1)
+        for j, ki in zip(np.where(finite)[0], k[finite]):
+            p_idx = len(pts_list)
+            pts_list.append(mid[j])
+            err_list.append(err[j])
+            for nid, px in ((e.source, px1[ki]), (e.dest, px2[ki])):
+                obs["cam_i"].append(cam_index[nid])
+                obs["point_i"].append(p_idx)
+                obs["model_i"].append(model_index[node_model[nid]])
+                obs["pixel"].append(px)
+    if not pts_list:
+        return None
+
+    P_count = len(pts_list)
+    layout = TangentLayout(len(quats), 0, P_count, len(fwd_list))
+    params = RelaxParams.create(
+        floats(quats), floats(positions), points=floats(np.stack(pts_list)),
+        focal=torch.stack([m.focal_length_pixels for m in fwd_list]),
+        principal=torch.stack([m.principal_point for m in fwd_list]),
+        radial=torch.stack([m.radial_distortion for m in fwd_list]),
+        tangential=torch.stack([m.tangential_distortion for m in fwd_list]), dtype=dtype,
+    )
+    nb = _bucket(len(obs["cam_i"]), minimum=64)
+    blocks = [B.pixel_error_block(
+        layout, ids(_pad_rows(np.asarray(obs["cam_i"]), nb)), ids(_pad_rows(np.asarray(obs["point_i"]), nb)),
+        ids(_pad_rows(np.asarray(obs["model_i"]), nb)), floats(_pad_rows(np.stack(obs["pixel"]), nb)),
+        floats(_pad_rows(np.ones(len(obs["cam_i"])), nb)),
+    )]
+    if options.any_intrinsics:
+        # weight-gated as in the mesh problem: the option tiers change values only
+        slots = list(model_index.values())
+        blocks.append(B.monotonicity_block(
+            layout, ids(slots), floats([_monotonicity_r_max(cam_models[mid]) for mid in model_index]),
+            floats(np.full(len(slots), np.sqrt(P_count / 10.0))),
+            floats(np.full(len(slots), _monotonicity_weight(options))),
+        ))
+    free = layout.build_free_mask(
+        rot_free=np.asarray(opt) if options.orientation else np.zeros(len(quats), bool), points_free=True,
+        focal_free=options.focal, principal_free=options.principal, radial_tiers=options.radial_tier,
+        tangential_free=options.tangential, device=device,
+    )
+    surface_free = layout.build_free_mask(rot_free=np.zeros(len(quats), bool), points_free=True, device=device)
+    return BuiltProblem(
+        params=params, layout=layout, blocks=blocks, free_mask=free, surface_free_mask=surface_free,
+        cam_index=cam_index, model_index=model_index, mesh=None, inverse_models=False,
+        track_points=np.stack(pts_list), track_errors=np.asarray(err_list),
+        kind="points", num_opt=len(node_poses), v_real=0,
+    )
+
+
 def _monotonicity_r_max(model: CameraModel) -> float:
     """The image's half diagonal in focal lengths: how far out the radial
     polynomial has to stay monotonic."""
@@ -672,6 +839,12 @@ def refresh_problem(
         built.surface_free_mask = layout.build_free_mask(
             rot_free=np.zeros(C, bool), mesh_free=mesh_free, device=device
         )
+    elif built.kind == "points":
+        built.free_mask = layout.build_free_mask(
+            rot_free=rot_free, points_free=True, focal_free=options.focal, principal_free=options.principal,
+            radial_tiers=options.radial_tier, tangential_free=options.tangential, device=device,
+        )
+        built.surface_free_mask = layout.build_free_mask(rot_free=np.zeros(C, bool), points_free=True, device=device)
 
     # the anchor prior follows the pass-entry mesh; the monotonicity prior
     # follows the radial tier (its weight) and the current focal (r_max)
@@ -701,16 +874,31 @@ def apply_solution(built: BuiltProblem, params: RelaxParams, node_poses: Sequenc
     model: the solved mesh, and the cloud of triangulated points whose two
     rays meet within 1 m^2 in front of both cameras.
 
-    The solved intrinsics leaves are an INVERSE model's; where its focal or
-    radial terms differ from the stored FORWARD model, the model is replaced
-    by the conversion of the solved one, made in the problem's dtype on its
-    device and stored like the old one."""
+    The solved intrinsics leaves of a mesh problem are an INVERSE model's;
+    where its focal or radial terms differ from the stored FORWARD model, the
+    model is replaced by the conversion of the solved one, made in the
+    problem's dtype on its device and stored like the old one. A points
+    problem optimises the FORWARD models themselves, which replace the
+    stored ones, and its solved points are the cloud."""
     quats = np.asarray(params.quats)
     for np_ in node_poses:
         slot = built.cam_index.get(np_.node_id)
         if slot is not None:
             np_.orientation = quats[slot]
 
+    if cam_models is not None and not built.inverse_models:
+        for mid, slot in built.model_index.items():
+            old = cam_models.get(mid)
+            if old is None:
+                continue
+
+            def like(x):
+                return torch.as_tensor(np.asarray(x)[slot], device=old.focal_length_pixels.device).to(old.dtype)
+
+            cam_models[mid] = dataclasses.replace(
+                old, focal_length_pixels=like(params.focal), principal_point=like(params.principal),
+                radial_distortion=like(params.radial), tangential_distortion=like(params.tangential),
+            )
     if cam_models is not None and built.inverse_models:
         dtype, device = built.params.quats.dtype, built.params.quats.device
 
@@ -743,7 +931,13 @@ def apply_solution(built: BuiltProblem, params: RelaxParams, node_poses: Sequenc
         mesh = built.mesh.copy()
         mesh.vertices[:, 2] = np.asarray(params.mesh_z)[: mesh.num_vertices]
         surface.mesh = mesh
-    good = np.isfinite(built.track_errors) & (np.abs(built.track_errors) < 1.0)
-    if good.any():
-        surface.cloud.append(built.track_points[good])
+    if built.params.P > 0 and not built.inverse_models:
+        pts = np.asarray(params.points)
+        good = np.isfinite(pts).all(axis=1)
+        if good.any():
+            surface.cloud.append(pts[good])
+    else:
+        good = np.isfinite(built.track_errors) & (np.abs(built.track_errors) < 1.0)
+        if good.any():
+            surface.cloud.append(built.track_points[good])
     return surface

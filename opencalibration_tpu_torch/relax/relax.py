@@ -1,6 +1,6 @@
 """Problem dispatch from the option set (twin of ``build_problem`` in
 opencalibration_tpu/relax/relax.py; problems are solved by
-``parallel.group_solver.solve_groups``)."""
+``parallel.group_solver``)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from opencalibration_tpu_torch.relax.problem_builder import (
     RelaxOptions,
     build_decomposition_problem,
     build_mesh_problem,
+    build_points_problem,
 )
 from opencalibration_tpu_torch.types.camera import CameraModel
 from opencalibration_tpu_torch.types.graph import MeasurementGraph, NodePose, SurfaceModel
@@ -38,7 +39,5 @@ def build_problem(
         )
         return built, True
     if options.points_3d:
-        raise NotImplementedError(
-            "3-d point relax problems are not ported yet: ROADMAP queue 1, B9 (points builder)"
-        )
+        return build_points_problem(graph, node_poses, cam_models, edge_ids, options, dtype=dtype, device=device), True
     return build_decomposition_problem(graph, node_poses, edge_ids, dtype=dtype, device=device), False

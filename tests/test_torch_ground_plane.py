@@ -306,17 +306,18 @@ def test_decomposition_problem_and_solve():
 
 
 def test_branches_not_ported_raise():
-    """3-d point problems raise, naming their ROADMAP item; intrinsics in a
-    ground-plane or ground-mesh problem, which raised until the
-    camera-parameter relax was ported, builds the pixel form of the plane-ray
-    block with the monotonicity prior."""
+    """The branches that raised until they were ported now build: 3-d point
+    problems (the points builder: tests/test_torch_points_problem.py holds it
+    to the reference) and intrinsics in a ground-plane or ground-mesh
+    problem, the pixel form of the plane-ray block with the monotonicity
+    prior."""
     graph, ids, j_models, _ = _graph({})
     graph = interop.graph_from(graph)
     t_models = {mid: interop.camera_from(m, "cpu") for mid, m in j_models.items()}
     edge_ids = sorted(graph.edge_ids())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.build_problem(graph, _poses(graph, ids, TG), t_models, edge_ids, TPB.RelaxOptions(points_3d=True),
-                         dtype=F64, device="cpu")
+    built, pre_solve = TR.build_problem(graph, _poses(graph, ids, TG), t_models, edge_ids,
+                                        TPB.RelaxOptions(points_3d=True), dtype=F64, device="cpu")
+    assert pre_solve and built.kind == "points" and [b.name for b in built.blocks] == ["pixel_error"]
     # (the ground-mesh form needs image features for its tracks: tests/test_torch_camera_relax.py)
     built, pre_solve = TR.build_problem(graph, _poses(graph, ids, TG), t_models, edge_ids,
                                         TPB.RelaxOptions(ground_plane=True, focal=True), dtype=F64, device="cpu")

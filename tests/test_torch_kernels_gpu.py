@@ -457,3 +457,78 @@ def test_densify_mesh_cuda_matches_cpu(cuda, tmp_path):
           f"gated_match {1e3 * stats['match_seconds'] / stats['pairs']:.3f} ms a pair")
     assert n_g == n_c > 50
     np.testing.assert_allclose(pts_g, pts_c, rtol=0, atol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def three_group_batch(tmp_path_factory):
+    """The first MESH_REFINEMENT pass of the 2 x 3 relief survey with pose
+    groups of 2 (three groups, four lanes), from the port's own
+    INITIAL_PROCESSING state on the CPU in float64: (the batch as it entered
+    the solve, the pre-solve flag, the LM budget, the CPU's result)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from opencalibration_tpu_torch.parallel import group_solver as GS
+    from opencalibration_tpu_torch.pipeline import stages as ST
+    from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
+    from opencalibration_tpu_torch.testing import survey as TS
+
+    paths, _, _ = TS.write_survey(str(tmp_path_factory.mktemp("groups")), 2, 3, relief_amplitude=8.0,
+                                  relief_wavelength=70.0, device="cpu")
+    p = Pipeline(batch_size=3, device="cpu", dtype=torch.float64)
+    p.add(paths)
+    while p.get_state() == PipelineState.INITIAL_PROCESSING:
+        p.iterate_once()
+    calls = []
+    orig, size = ST.solve_group_batch, ST.POSE_GROUP_SIZE
+
+    def recording(batch, pre_solve, **kw):
+        entry = copy.deepcopy(batch)
+        out = orig(batch, pre_solve, **kw)
+        calls.append((entry, pre_solve, kw["max_iterations"], GS.fetch_solved(out[0]), out[1]))
+        return out
+
+    ST.solve_group_batch, ST.POSE_GROUP_SIZE = recording, 2
+    try:
+        p.iterate_once()
+    finally:
+        ST.solve_group_batch, ST.POSE_GROUP_SIZE = orig, size
+    assert calls and calls[0][0].num_groups == 3
+    return calls[0]
+
+
+@pytest.mark.gpu
+def test_batched_group_solve_cuda_matches_cpu(cuda, three_group_batch):
+    """The three-group batch carried to the card and solved there: every
+    lane's rotations and mesh heights within 1e-4 of the CPU's."""
+    from opencalibration_tpu_torch import interop
+    from opencalibration_tpu_torch.ops.quaternion import quat_angle, quat_conjugate, quat_multiply
+    from opencalibration_tpu_torch.parallel import group_solver as GS
+
+    batch, pre_solve, iters, cpu, cpu_info = three_group_batch
+    on_card = interop.group_batch_from(batch, cuda)
+    solved, info = GS.solve_group_batch(on_card, pre_solve, max_iterations=iters)
+    got = GS.fetch_solved(solved)
+    q_got, q_cpu = torch.from_numpy(got.quats), torch.from_numpy(cpu.quats)
+    ang = quat_angle(quat_multiply(q_got, quat_conjugate(q_cpu)))
+    assert float(ang.max()) <= 1e-4
+    np.testing.assert_allclose(got.mesh_z, cpu.mesh_z, rtol=0, atol=1e-4)
+    assert info.iterations.shape == (3,) and info.iterations.is_cuda
+
+
+@pytest.mark.gpu
+def test_fed_extraction_cuda_matches_cpu(cuda):
+    """``extract_features(diffusion="fed")`` of two overlapping texture crops:
+    equal keypoint counts, 99 % of the keypoints within 0.01 px."""
+    from opencalibration_tpu_torch.ops import features as F
+    from opencalibration_tpu_torch.testing import survey as TS
+
+    tex = TS.make_texture(0, size=512)
+    images = torch.from_numpy(np.stack([tex[0:120, 0:160], tex[30:150, 40:200]]).astype(np.float32))
+    got = F.extract_features(images.to(cuda), 256, diffusion="fed")
+    want = F.extract_features(images, 256, diffusion="fed")
+    valid = want["valid"]
+    assert torch.equal(got["valid"].sum(1).cpu(), valid.sum(1)) and valid.sum() > 20
+    close = ((got["xy"].cpu() - want["xy"]).abs() <= 0.01).all(-1) & valid
+    assert int(close.sum()) >= 0.99 * int(valid.sum())

@@ -66,14 +66,20 @@ def _errors(p, paths, positions, quats):
 def drive(p, label, until, paths, positions, quats):
     """``iterate_once`` until the state ``until``, one line per pass."""
     solves = []
-    orig = ST.solve_groups
+    names = ("solve_group_batch", "solve_group_batch_shared")
+    orig = {n: getattr(ST, n) for n in names}
 
-    def recording(builts, *args, **kw):
-        out = orig(builts, *args, **kw)
-        solves.append([(int(i.iterations), float(i.final_cost)) for i in out[1]])
-        return out
+    def recording(name):
+        def solve(batch, *args, **kw):
+            out = orig[name](batch, *args, **kw)
+            info = out[1]
+            solves.append(list(zip(info.iterations.reshape(-1).tolist(), info.final_cost.reshape(-1).tolist())))
+            return out
 
-    ST.solve_groups = recording
+        return solve
+
+    for n in names:
+        setattr(ST, n, recording(n))
     try:
         while p.get_state() != until:
             state, rc, n = p.get_state(), p.state_run_count(), len(solves)
@@ -87,7 +93,8 @@ def drive(p, label, until, paths, positions, quats):
                   f"{float(p.model_store[1].focal_length_pixels):.4f} px, orientations median {np.median(ang):.4f} "
                   f"max {ang.max():.4f} deg, heights median {np.median(herr):.4f} max {herr.max():.4f} m", flush=True)
     finally:
-        ST.solve_groups = orig
+        for n, fn in orig.items():
+            setattr(ST, n, fn)
 
 
 def main(argv=None):
