@@ -1,16 +1,16 @@
 """Solve the relax groups of one stage (twin of
-opencalibration_tpu/parallel/group_solver.py on one device).
+opencalibration_tpu/parallel/group_solver.py).
 
 Three paths:
 
 * ``build_group_batch`` + ``solve_group_batch``: groups that share nothing are
   padded to one layout, stacked along a leading group axis and solved in one
   LM over that axis (``lm.solve_batch``, one lane a group), as the reference
-  solves them in one vmapped dispatch. The group count is bucketed to a power
-  of two with fully frozen copies of group 0, which stop after one
-  iteration. The padded slots are frozen and carry no residuals, so each
-  group's answer does not depend on the padding; the choice between the dense
-  and the matrix-free solver does: it follows the padded batch layout
+  solves them in one vmapped dispatch. On one device the group count is
+  bucketed to a power of two with fully frozen copies of group 0, which stop
+  after one iteration. The padded slots are frozen and carry no residuals, so
+  each group's answer does not depend on the padding; the choice between the
+  dense and the matrix-free solver does: it follows the padded batch layout
   (``batch_layout``).
 * ``solve_groups``: the same groups solved one after another, each in its own
   layout, routed by the batch layout too (the stage's
@@ -22,9 +22,13 @@ Three paths:
   assembles every group's normal equations, eliminates the group-local slots
   (rotations) by a Schur complement, sums the reduced systems over the
   groups, solves the shared tail (mesh heights and intrinsics) once, and
-  back-substitutes. The reference spreads the groups over a device mesh and
-  sums with ``psum``; on one device that sum is a plain sum over the leading
-  axis.
+  back-substitutes.
+
+Both batched solvers take ``devices``: the groups are cut into contiguous
+shards, one a device (``parallel/mesh.py``; a device may repeat), as the
+reference lays them over its ``"groups"`` mesh axis. Independent lanes run
+shard by shard in lockstep; the joint solve sums its reduced systems, costs
+and predicted decreases across the shards (the reference's ``psum``).
 
 Padding contract of a batch: camera, mesh-vertex, point and model slots
 beyond a group's own count are frozen; block instances beyond a group's own
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from opencalibration_tpu_torch import interop
+from opencalibration_tpu_torch.parallel.mesh import GroupMesh, map_tree
 from opencalibration_tpu_torch.relax import lm
 from opencalibration_tpu_torch.relax.blocks import BlockSpec
 from opencalibration_tpu_torch.relax.problem_builder import BuiltProblem, _bucket
@@ -364,21 +369,14 @@ def pad_lanes(batch: GroupBatch, lanes: int) -> GroupBatch:
 
     frozen = torch.zeros((pad, batch.layout.dim), dtype=torch.bool, device=batch.free.device)
     return dataclasses.replace(
-        batch,
-        params=RelaxParams(**{f: dup(getattr(batch.params, f)) for f in FIELDS}),
-        blocks=tuple(dataclasses.replace(b, slots=dup(b.slots), weight=dup(b.weight),
-                                         data={k: dup(v) for k, v in b.data.items()}) for b in batch.blocks),
+        batch, params=map_tree(dup, batch.params), blocks=map_tree(dup, batch.blocks),
         free=torch.cat([batch.free, frozen]), surface_free=torch.cat([batch.surface_free, frozen]),
     )
 
 
 def _lanes(tree, lo: int, hi: int):
     """Lanes [lo, hi) of a stacked RelaxParams or BlockSpec (views)."""
-    if isinstance(tree, RelaxParams):
-        return RelaxParams(**{f: getattr(tree, f)[lo:hi] for f in FIELDS})
-    return dataclasses.replace(
-        tree, slots=tree.slots[lo:hi], weight=tree.weight[lo:hi], data={k: v[lo:hi] for k, v in tree.data.items()}
-    )
+    return map_tree(lambda x: x[lo:hi], tree)
 
 
 def _solve_batch(params, blocks, free, surface_free, layout, pre_solve, max_iterations, init_lambda):
@@ -400,6 +398,16 @@ def _solve_batch(params, blocks, free, surface_free, layout, pre_solve, max_iter
     return lm.solve_batch(params, blocks, layout, free, max_iterations=max_iterations, init_lambda=init_lambda)
 
 
+def _lane_shards(mesh: GroupMesh, padded: GroupBatch, lam0: torch.Tensor) -> list:
+    """Per shard (params, blocks, free, surface_free, lam0), the lanes cut
+    into the mesh's contiguous ranges; one shard on the batch's own device
+    takes the batch's tensors as they are."""
+    args = (padded.params, padded.blocks, padded.free, padded.surface_free, lam0)
+    if len(mesh) == 1 and mesh.devices[0] == padded.free.device:
+        return [args]
+    return list(zip(*[mesh.split(a) for a in args]))
+
+
 def solve_group_batch(
     batch: GroupBatch,
     pre_solve: bool,
@@ -408,38 +416,54 @@ def solve_group_batch(
     init_lambda=None,
 ) -> Tuple[RelaxParams, lm.SolveInfo]:
     """Solve every group of a batch built with ``shared_intrinsics=False`` in
-    one LM over the group axis. The group count is bucketed to a power of two
-    by frozen copies of group 0; with ``OC_TPU_MAX_GROUPS_PER_DISPATCH`` set
-    the lanes are solved in chunks of the largest power of two not above it.
-    Each group's full solve starts from ``init_lambda`` [G], else from the
-    batch's ``warm_lambda`` (the last solve's final damping), clipped into
-    ``WARM_LAMBDA_RANGE``, else from 1. Returns (solved params [G-stacked],
-    SolveInfo with [G] leaves); the final dampings are kept on the batch.
-    ``devices``: one device only (the batch's); several are the multi-device
-    path."""
-    if devices is not None and len(list(devices)) > 1:
-        raise NotImplementedError("Slice E: solving the groups across several devices")
+    one LM over the group axis. Each group's full solve starts from
+    ``init_lambda`` [G], else from the batch's ``warm_lambda`` (the last
+    solve's final damping), clipped into ``WARM_LAMBDA_RANGE``, else from 1.
+    Returns (solved params [G-stacked] on the batch's device, SolveInfo with
+    [G] leaves); the final dampings are kept on the batch.
+
+    ``devices`` lists the shards the lanes are spread over (a device may
+    repeat); by default the batch's own device. On one device the group
+    count is bucketed to a power of two by frozen copies of group 0, and with
+    ``OC_TPU_MAX_GROUPS_PER_DISPATCH`` set the lanes are solved in chunks of
+    the largest power of two not above it. On D > 1 devices the groups are
+    padded to a multiple of D by frozen copies of group 0 and cut into D
+    contiguous shards, each solved by ``lm.solve_batch`` on its device, all
+    shards in lockstep (``lm.solve_batch_shards``). A finished lane holds its
+    state, so a lane's result does not depend on D: bit for bit on the CPU,
+    to the last bits on the card (see ``lm.solve_batch_shards``)."""
+    mesh = GroupMesh([batch.free.device] if devices is None else list(devices))
+    D = len(mesh)
     G = batch.num_groups
-    lanes = _bucket(G, minimum=1)
+    lanes = _bucket(G, minimum=1) if D == 1 else G + (-G) % D
     dtype, dev = batch.params.quats.dtype, batch.free.device
     if init_lambda is None and batch.warm_lambda is not None:
         init_lambda = batch.warm_lambda[0]
     lam0 = torch.ones(lanes, dtype=dtype, device=dev)
     if init_lambda is not None:
         lam0[:G] = torch.clamp(torch.as_tensor(init_lambda, device=dev).to(dtype), *WARM_LAMBDA_RANGE)
-    padded = pad_lanes(batch, lanes)
-    chunk = int(os.environ.get(MAX_GROUPS_ENV) or 0)
-    chunk = 1 << (chunk.bit_length() - 1) if 0 < chunk < lanes else lanes
-    parts = []
-    for lo in range(0, lanes, chunk):
-        hi = lo + chunk
-        parts.append(_solve_batch(
-            _lanes(padded.params, lo, hi), tuple(_lanes(b, lo, hi) for b in padded.blocks), padded.free[lo:hi],
-            padded.surface_free[lo:hi], padded.layout, pre_solve, max_iterations, lam0[lo:hi],
-        ))
-    solved = RelaxParams(**{f: torch.cat([getattr(s, f) for s, _ in parts])[:G] for f in FIELDS})
-    info = lm.SolveInfo(**{k.name: torch.cat([getattr(i, k.name) for _, i in parts])[:G]
-                           for k in dataclasses.fields(lm.SolveInfo)})
+    layout = batch.layout
+    shards = _lane_shards(mesh, pad_lanes(batch, lanes), lam0)
+    if D == 1:
+        params, blocks, free, surface_free, lam0 = shards[0]
+        chunk = int(os.environ.get(MAX_GROUPS_ENV) or 0)
+        chunk = 1 << (chunk.bit_length() - 1) if 0 < chunk < lanes else lanes
+        parts = []
+        for lo in range(0, lanes, chunk):
+            hi = lo + chunk
+            parts.append(_solve_batch(
+                _lanes(params, lo, hi), tuple(_lanes(b, lo, hi) for b in blocks), free[lo:hi],
+                surface_free[lo:hi], layout, pre_solve, max_iterations, lam0[lo:hi],
+            ))
+    else:
+        if pre_solve:
+            outs = lm.solve_batch_shards([(p, b, sf, 1.0) for p, b, _, sf, _ in shards], layout,
+                                         max_iterations=max_iterations)
+            shards = [(o[0],) + tuple(s[1:]) for o, s in zip(outs, shards)]
+        parts = lm.solve_batch_shards([(p, b, f, lam) for p, b, f, _, lam in shards], layout,
+                                      max_iterations=max_iterations)
+    solved = _lanes(mesh.gather([s for s, _ in parts], device=dev), 0, G)
+    info = _lanes(mesh.gather([i for _, i in parts], device=dev), 0, G)
     batch.warm_lambda = (info.final_lambda, None)
     return solved, info
 
@@ -451,15 +475,123 @@ def solve_group_batch(
 
 def _group(tree, g: int):
     """Group g's slice of a stacked RelaxParams or BlockSpec (views)."""
-    if isinstance(tree, RelaxParams):
-        return RelaxParams(**{f: getattr(tree, f)[g] for f in FIELDS})
-    return dataclasses.replace(
-        tree, slots=tree.slots[g], weight=tree.weight[g], data={k: v[g] for k, v in tree.data.items()}
-    )
+    return map_tree(lambda x: x[g], tree)
+
+
+class _SharedShard:
+    """One shard's groups of the joint solve on its device: their parameters,
+    blocks, masks and local dampings, and the shard's copy of the replicated
+    state (the shared damping and its growth factor, the joint cost, the
+    stop flag). Every replicated value is computed on each shard from
+    reduced inputs by the same operations, so the copies stay equal."""
+
+    def __init__(self, params, blocks, free, lam_l, lam_s, free_s, layout, n_local, tolerances):
+        self.dtype, self.dev = params.quats.dtype, params.quats.device
+        self.G = free.shape[0]
+        self.layout, self.n_local, self.n_shared = layout, n_local, layout.dim - n_local
+        self.parameter_tolerance, self.function_tolerance = tolerances
+        self.free_l = free[:, :n_local]  # [Gk, nl]
+        self.free_s = free_s  # [ns], replicated
+        self.free_join = torch.cat([self.free_l, free_s.expand(self.G, self.n_shared)], dim=1)
+        self.frozen_l = (~self.free_l).to(self.dtype)
+        self.frozen_s = (~free_s).to(self.dtype)
+        self.group_blocks = [[_group(b, g) for b in blocks] for g in range(self.G)]
+        self.p, self.lam_l = params, lam_l
+        self.lam_s = lam_s.to(self.dev, copy=True)
+        self.nu_s = torch.as_tensor(2.0, dtype=self.dtype, device=self.dev)
+        self.per = self.cost_per(params)
+
+    def cost_per(self, p):
+        return torch.stack([lm.total_cost(_group(p, g), self.group_blocks[g]) for g in range(self.G)])
+
+    def start(self, cost0):
+        self.cost = cost0
+        self.done = ~torch.isfinite(cost0)
+
+    def reduce(self):
+        """Assemble the groups' damped normal equations, eliminate the local
+        slots and return the shard's share of the shared system, packed as
+        [S | rhs | diag(H_ss)]: [ns, ns + 2]."""
+        nl, ns = self.n_local, self.n_shared
+        Hg = [lm.normal_equations(_group(self.p, g), self.group_blocks[g], self.layout, self.free_join[g])
+              for g in range(self.G)]
+        H = torch.stack([h for h, _ in Hg])  # [Gk, T, T]
+        g_ = torch.stack([v for _, v in Hg])  # [Gk, T]
+        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
+
+        H_ll = H[:, :nl, :nl] + torch.diag_embed(self.lam_l[:, None] * diag[:, :nl] + self.frozen_l)
+        H_ls = H[:, :nl, nl:]
+        H_ss = H[:, nl:, nl:]
+        g_l, g_s = g_[:, :nl], g_[:, nl:]
+
+        # Jacobi-scaled block solves (see lm._jacobi_solve): the local blocks
+        # mix units too, and float32 needs the scaling
+        s_l = torch.rsqrt(torch.clamp(torch.diagonal(H_ll, dim1=-2, dim2=-1), 1e-24, 1e32))
+        H_ll_s = H_ll * s_l[:, :, None] * s_l[:, None, :]
+        rhs_l = torch.cat([H_ls, g_l[..., None]], dim=-1)
+        X = s_l[:, :, None] * torch.linalg.solve_ex(H_ll_s, s_l[:, :, None] * rhs_l)[0]
+        self.H, self.g = H, g_
+        self.Hinv_Hls, self.Hinv_gl = X[..., :ns], X[..., ns]
+
+        S = torch.sum(H_ss - torch.einsum("gls,glt->gst", H_ls, self.Hinv_Hls), dim=0)
+        rhs = torch.sum(g_s - torch.einsum("gls,gl->gs", H_ls, self.Hinv_gl), dim=0)
+        dss = torch.sum(torch.diagonal(H_ss, dim1=-2, dim2=-1), dim=0)
+        return torch.cat([S, rhs[:, None], dss[:, None]], dim=1)
+
+    def step(self, packed):
+        """Solve the reduced shared system, back-substitute the local steps
+        and take the trial step. Returns the shard's [cost, predicted
+        decrease] partials and its largest step entry."""
+        ns = self.n_shared
+        S, rhs = packed[:, :ns], packed[:, ns]
+        dss = torch.clamp(packed[:, ns + 1], 1e-10, 1e32)
+        S = S + torch.diag(self.lam_s * dss) + torch.diag(self.frozen_s)
+        d_s = torch.where(self.free_s, -lm._jacobi_solve(S, rhs), 0.0)
+
+        d_l = -(self.Hinv_gl + torch.einsum("gls,s->gl", self.Hinv_Hls, d_s))
+        d_l = torch.where(self.free_l, d_l, 0.0)
+        delta = torch.cat([d_l, d_s.expand(self.G, ns)], dim=1)
+        self.p_new = _stack_params([self.layout.retract(_group(self.p, g), delta[g]) for g in range(self.G)])
+        self.per_new = self.cost_per(self.p_new)
+        # gain ratio of the JOINT step: the predicted decrease of the
+        # undamped Gauss-Newton model, summed over the groups
+        self.pred_g = -(torch.einsum("gs,gs->g", self.g, delta)
+                        + 0.5 * torch.einsum("gst,gs,gt->g", self.H, delta, delta))
+        return torch.stack([torch.sum(self.per_new), torch.sum(self.pred_g)]), torch.max(torch.abs(delta))
+
+    def update(self, new_cost, pred, step_max):
+        """The accept test and the damping schedules from the reduced cost,
+        predicted decrease and step maximum."""
+        cost = self.cost
+        rho = (cost - new_cost) / torch.clamp_min(pred, 1e-30)
+        accept = torch.isfinite(new_cost) & (new_cost < cost) & (pred > 0)
+
+        self.p = self.p.where(accept, self.p_new)
+        # each group's local damping follows its OWN gain ratio: a group that
+        # got worse raises its lambda even when the joint step is accepted;
+        # on a joint reject the groups that improved keep theirs
+        per, per_new, pred_g, lam_l = self.per, self.per_new, self.pred_g, self.lam_l
+        rho_g = (per - per_new) / torch.clamp_min(pred_g, 1e-30)
+        shrink_g = torch.clamp_min(1.0 - (2.0 * rho_g - 1.0) ** 3, 1.0 / 3.0)
+        improved = torch.isfinite(per_new) & (per_new <= per) & (pred_g > 0)
+        lam_l = torch.where(improved & accept, lam_l * shrink_g, torch.where(improved, lam_l, lam_l * 4.0))
+        self.lam_l = torch.clamp(lam_l, 1e-12, 1e12)
+        shrink_s = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+        lam_s, nu_s = self.lam_s, self.nu_s
+        self.lam_s = torch.where(accept, torch.clamp(lam_s * shrink_s, 1e-12, 1e12),
+                                 torch.clamp_max(lam_s * nu_s, 1e12))
+        self.nu_s = torch.where(accept, torch.as_tensor(2.0, dtype=self.dtype, device=self.dev),
+                                torch.clamp_max(nu_s * 2.0, 1e6))
+
+        step_small = step_max < self.parameter_tolerance
+        cost_flat = accept & ((cost - new_cost) < self.function_tolerance * torch.clamp_min(cost, 1e-30))
+        self.done = step_small | cost_flat | (self.lam_s > 1e10)
+        self.per = torch.where(accept, per_new, per)
+        self.cost = torch.where(accept, new_cost, cost)
 
 
 def _solve_shared(params, blocks, free, layout, max_iterations, n_local=None, init_lam_l=None,
-                  init_lam_s=1.0, parameter_tolerance=1e-8, function_tolerance=1e-6):
+                  init_lam_s=1.0, parameter_tolerance=1e-8, function_tolerance=1e-6, mesh=None):
     """Joint LM over all groups with the trailing tangent block SHARED.
 
     Slots below ``n_local`` are group-local (rotations, and points where
@@ -469,117 +601,63 @@ def _solve_shared(params, blocks, free, layout, max_iterations, n_local=None, in
     calibration problem (one surface, one set of intrinsics, all cameras);
     with points in the layout only the intrinsics are shared.
 
-    Every iteration each group assembles its damped normal equations and
-    eliminates its local slots; the reduced systems are summed over the
-    groups and solved once; the local steps back-substitute; the summed cost
-    drives the accept test. Damping is split: each group's local block has
-    its own lambda, adapted from that group's own cost change, and the
-    shared system has one lambda on Nielsen's schedule, so one
-    ill-conditioned group raises only its own damping.
+    The groups are cut into the shards of ``mesh`` (by default one shard on
+    the params' device), as the reference lays them over its ``"groups"``
+    mesh axis. Every iteration each shard assembles its groups' damped
+    normal equations and eliminates their local slots; one ``psum`` of the
+    packed [S | rhs | diag(H_ss)] forms the shared system, which every shard
+    solves; each shard back-substitutes its own groups; the joint cost and
+    the predicted decrease are psummed and the step's largest entry is
+    pmaxed, and every shard takes the same accept decision. Damping is
+    split: each group's local block has its own lambda, adapted from that
+    group's own cost change and kept on its shard, and the shared system has
+    one replicated lambda on Nielsen's schedule, so one ill-conditioned
+    group raises only its own damping.
 
     The groups' normal equations are assembled one group after another and
-    stacked to [G, T, T]: ``lm.normal_equations`` is a Python loop over
+    stacked to [Gk, T, T]: ``lm.normal_equations`` is a Python loop over
     families and instance chunks around ``vmap(jacfwd)``, the group count is
     small, and the loop keeps each group's sums bit-identical to a solve of
-    that group alone. The host reads one ``done`` flag per iteration.
+    that group alone. The host reads shard 0's ``done`` flag once per
+    iteration; with one shard the result is the single-device solve's.
 
-    Returns (params [G-stacked], SolveInfo, lam_l [G])."""
+    Returns (params [G-stacked], SolveInfo, lam_l [G]) on the params'
+    device."""
     dtype, dev = params.quats.dtype, params.quats.device
-    T = layout.dim
+    mesh = GroupMesh([dev]) if mesh is None else mesh
     if n_local is None:
         n_local = layout.focal_off
-    n_shared = T - n_local
     G = free.shape[0]
-
-    def scalar(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
-
-    lam_s = scalar(init_lam_s)
+    lam_s = torch.as_tensor(init_lam_s, dtype=dtype, device=dev)
     lam_l = lam_s.expand(G).clone() if init_lam_l is None else torch.as_tensor(init_lam_l, device=dev).to(dtype)
 
-    free_l = free[:, :n_local]  # [G, nl]
+    frees = mesh.split(free)
     # the shared tail is one set of unknowns: free where any group frees it
-    free_s = free[:, n_local:].any(dim=0)  # [ns]
-    free_join = torch.cat([free_l, free_s.expand(G, n_shared)], dim=1)
-    frozen_l = (~free_l).to(dtype)
-    frozen_s = (~free_s).to(dtype)
-    group_blocks = [[_group(b, g) for b in blocks] for g in range(G)]
-
-    def cost_per(p):
-        return torch.stack([lm.total_cost(_group(p, g), group_blocks[g]) for g in range(G)])
-
-    per = cost_per(params)
-    cost0 = cost = torch.sum(per)
-    p, nu_s = params, scalar(2.0)
-    done = ~torch.isfinite(cost0)
+    free_s = mesh.any([f[:, n_local:].any(dim=0) for f in frees])
+    tolerances = (parameter_tolerance, function_tolerance)
+    shards = [_SharedShard(p, b, f, lam, lam_s, fs, layout, n_local, tolerances)
+              for p, b, f, lam, fs in zip(mesh.split(params), mesh.split(blocks), frees, mesh.split(lam_l), free_s)]
+    for s, c in zip(shards, mesh.psum([torch.sum(s.per) for s in shards])):
+        s.start(c)
+    cost0 = shards[0].cost
     it = 0
-    while it < max_iterations and not bool(done):  # one host sync per iteration
-        Hg = [lm.normal_equations(_group(p, g), group_blocks[g], layout, free_join[g]) for g in range(G)]
-        H = torch.stack([h for h, _ in Hg])  # [G, T, T]
-        g_ = torch.stack([v for _, v in Hg])  # [G, T]
-        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
-
-        H_ll = H[:, :n_local, :n_local] + torch.diag_embed(lam_l[:, None] * diag[:, :n_local] + frozen_l)
-        H_ls = H[:, :n_local, n_local:]
-        H_ss = H[:, n_local:, n_local:]
-        g_l, g_s = g_[:, :n_local], g_[:, n_local:]
-
-        # Jacobi-scaled block solves (see lm._jacobi_solve): the local blocks
-        # mix units too, and float32 needs the scaling
-        s_l = torch.rsqrt(torch.clamp(torch.diagonal(H_ll, dim1=-2, dim2=-1), 1e-24, 1e32))
-        H_ll_s = H_ll * s_l[:, :, None] * s_l[:, None, :]
-        rhs_l = torch.cat([H_ls, g_l[..., None]], dim=-1)
-        X = s_l[:, :, None] * torch.linalg.solve_ex(H_ll_s, s_l[:, :, None] * rhs_l)[0]
-        Hinv_Hls, Hinv_gl = X[..., :n_shared], X[..., n_shared]
-
-        S = torch.sum(H_ss - torch.einsum("gls,glt->gst", H_ls, Hinv_Hls), dim=0)
-        rhs = torch.sum(g_s - torch.einsum("gls,gl->gs", H_ls, Hinv_gl), dim=0)
-        dss = torch.clamp(torch.sum(torch.diagonal(H_ss, dim1=-2, dim2=-1), dim=0), 1e-10, 1e32)
-        S = S + torch.diag(lam_s * dss) + torch.diag(frozen_s)
-        d_s = torch.where(free_s, -lm._jacobi_solve(S, rhs), 0.0)
-
-        d_l = -(Hinv_gl + torch.einsum("gls,s->gl", Hinv_Hls, d_s))
-        d_l = torch.where(free_l, d_l, 0.0)
-        delta = torch.cat([d_l, d_s.expand(G, n_shared)], dim=1)
-        p_new = _stack_params([layout.retract(_group(p, g), delta[g]) for g in range(G)])
-        per_new = cost_per(p_new)
-        new_cost = torch.sum(per_new)
-
-        # gain ratio of the JOINT step: the predicted decrease of the
-        # undamped Gauss-Newton model, summed over the groups
-        pred_g = -(torch.einsum("gs,gs->g", g_, delta) + 0.5 * torch.einsum("gst,gs,gt->g", H, delta, delta))
-        pred = torch.sum(pred_g)
-        rho = (cost - new_cost) / torch.clamp_min(pred, 1e-30)
-        accept = torch.isfinite(new_cost) & (new_cost < cost) & (pred > 0)
-
-        p = p.where(accept, p_new)
-        # each group's local damping follows its OWN gain ratio: a group that
-        # got worse raises its lambda even when the joint step is accepted;
-        # on a joint reject the groups that improved keep theirs
-        rho_g = (per - per_new) / torch.clamp_min(pred_g, 1e-30)
-        shrink_g = torch.clamp_min(1.0 - (2.0 * rho_g - 1.0) ** 3, 1.0 / 3.0)
-        improved = torch.isfinite(per_new) & (per_new <= per) & (pred_g > 0)
-        lam_l = torch.where(improved & accept, lam_l * shrink_g, torch.where(improved, lam_l, lam_l * 4.0))
-        lam_l = torch.clamp(lam_l, 1e-12, 1e12)
-        shrink_s = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-        lam_s = torch.where(accept, torch.clamp(lam_s * shrink_s, 1e-12, 1e12), torch.clamp_max(lam_s * nu_s, 1e12))
-        nu_s = torch.where(accept, scalar(2.0), torch.clamp_max(nu_s * 2.0, 1e6))
-
-        step_small = torch.max(torch.abs(delta)) < parameter_tolerance
-        cost_flat = accept & ((cost - new_cost) < function_tolerance * torch.clamp_min(cost, 1e-30))
-        done = step_small | cost_flat | (lam_s > 1e10)
-        per = torch.where(accept, per_new, per)
-        cost = torch.where(accept, new_cost, cost)
+    while it < max_iterations and not bool(shards[0].done):  # one host sync per iteration
+        packed = mesh.psum([s.reduce() for s in shards])
+        partials = [s.step(pk) for s, pk in zip(shards, packed)]
+        sums = mesh.psum([c for c, _ in partials])
+        steps = mesh.pmax([m for _, m in partials])
+        for s, sm, st in zip(shards, sums, steps):
+            s.update(sm[0], sm[1], st)
         it += 1
 
-    info = lm.SolveInfo(
-        initial_cost=cost0, final_cost=cost, iterations=torch.tensor(it, dtype=torch.int32), final_lambda=lam_s
-    )
-    return p, info, lam_l
+    s0 = shards[0]
+    info = lm.SolveInfo(initial_cost=cost0.to(dev), final_cost=s0.cost.to(dev),
+                        iterations=torch.tensor(it, dtype=torch.int32), final_lambda=s0.lam_s.to(dev))
+    return mesh.gather([s.p for s in shards], device=dev), info, mesh.gather([s.lam_l for s in shards], device=dev)
 
 
 def solve_group_batch_shared(
-    batch: GroupBatch, pre_solve: bool, max_iterations: int = lm.DEFAULT_MAX_ITERATIONS
+    batch: GroupBatch, pre_solve: bool, max_iterations: int = lm.DEFAULT_MAX_ITERATIONS, devices=None,
 ) -> Tuple[RelaxParams, lm.SolveInfo]:
     """Joint solve of a batch built with ``shared_intrinsics=True``.
 
@@ -587,13 +665,23 @@ def solve_group_batch_shared(
     group carries a copy of the SAME surface, so sharing it gives the global
     calibration problem, where private meshes would let the focal drift
     along the focal / height valley. With points in the layout, or mesh
-    copies that differ, only the intrinsics are shared. Returns the solved
-    parameters ([G]-stacked tensors) and the joint solve's info; the exit
-    dampings are kept on the batch for the next solve."""
+    copies that differ, only the intrinsics are shared.
+
+    ``devices`` lists the shards (a device may repeat; by default the
+    batch's own device): the groups are spread over ``min(len(devices), G)``
+    of them, padded to a multiple of that count by copies of group 0 that
+    are frozen and carry block weight 0, so the joint problem counts each
+    real group once. Returns the solved parameters ([G]-stacked tensors on
+    the batch's device) and the joint solve's info; the exit dampings of the
+    real groups are kept on the batch for the next solve."""
     if not batch.shared_intrinsics:
         raise ValueError("solve_group_batch_shared needs a batch built with shared_intrinsics=True")
-    layout, params, free = batch.layout, batch.params, batch.free
+    layout, params = batch.layout, batch.params
     G = batch.num_groups
+    devices = [batch.free.device] if devices is None else list(devices)
+    D = min(len(devices), G)
+    mesh = GroupMesh(devices[:D])
+    pad = (-G) % D
 
     share_mesh = layout.V > 0 and layout.P == 0
     if share_mesh:
@@ -602,36 +690,48 @@ def solve_group_batch_shared(
     n_local = layout.mesh_off if share_mesh else layout.focal_off
 
     # instances that live wholly in the shared tail (mesh priors, radial
-    # monotonicity) exist once per group copy: weighted 1/G, the joint
-    # objective counts them once
+    # monotonicity) exist once per group copy: weighted 1/G (the real G), the
+    # joint objective counts them once
     def downweight(b):
         all_shared = torch.all(b.slots >= n_local, dim=-1)
         return dataclasses.replace(b, weight=torch.where(all_shared, b.weight / G, b.weight))
 
-    blocks = tuple(downweight(b) for b in batch.blocks)
+    work = pad_lanes(dataclasses.replace(batch, blocks=tuple(downweight(b) for b in batch.blocks)), G + pad)
+    params, blocks, free, surface_free = work.params, work.blocks, work.free, work.surface_free
+    if pad:
+        # the copies are frozen, and weightless: the joint cost and normal
+        # equations sum over the groups, so a live copy would count group 0
+        # twice
+        real = (torch.arange(G + pad, device=free.device) < G)[:, None]
+        blocks = tuple(dataclasses.replace(b, weight=torch.where(real, b.weight, 0.0)) for b in blocks)
 
     with full_fp32():
         if pre_solve and share_mesh:
             # the pre-solve moves the shared surface: solved jointly, so every
             # group's copy stays identical
-            params, _, _ = _solve_shared(params, blocks, batch.surface_free, layout, max_iterations, n_local=n_local)
+            params, _, _ = _solve_shared(params, blocks, surface_free, layout, max_iterations, n_local=n_local,
+                                         mesh=mesh)
         elif pre_solve:
-            # the surface slots are group-local: independent solves
-            linear_solver = lm.route(layout.dim)
-            params = _stack_params([
-                lm.solve(_group(params, g), [_group(b, g) for b in blocks], layout, batch.surface_free[g],
-                         max_iterations=max_iterations, linear_solver=linear_solver)[0]
-                for g in range(G)
-            ])
+            # the surface slots are group-local: independent lanes, each
+            # shard's in one lane-batched LM
+            outs = lm.solve_batch_shards(
+                [(p, b, sf, 1.0) for p, b, sf in zip(mesh.split(params), mesh.split(blocks), mesh.split(surface_free))],
+                layout, max_iterations=max_iterations)
+            params = mesh.gather([p for p, _ in outs], device=free.device)
         lam_l0, lam_s0 = None, 1.0
         if batch.warm_lambda is not None and batch.warm_lambda[1] is not None:
             wl, ws = batch.warm_lambda
             lam_s0 = torch.clamp(ws, *WARM_LAMBDA_RANGE)
             if wl is not None:
                 lam_l0 = torch.clamp(wl, *WARM_LAMBDA_RANGE)
+                lam_l0 = torch.cat([lam_l0, torch.ones(pad, dtype=lam_l0.dtype, device=lam_l0.device)])
         solved, info, lam_l = _solve_shared(
-            params, blocks, free, layout, max_iterations, n_local=n_local, init_lam_l=lam_l0, init_lam_s=lam_s0
+            params, blocks, free, layout, max_iterations, n_local=n_local, init_lam_l=lam_l0, init_lam_s=lam_s0,
+            mesh=mesh,
         )
+    if pad:
+        solved = _lanes(solved, 0, G)
+        lam_l = lam_l[:G]
     batch.warm_lambda = (lam_l, info.final_lambda)
     return solved, info
 

@@ -129,12 +129,13 @@ class StepCompletionInfo:
 
 class Pipeline:
     def __init__(self, batch_size: int = 10, parallelism: int = 8, *, device="cuda",
-                 dtype=torch.float64, ransac_uniforms=None):
+                 dtype=torch.float64, ransac_uniforms=None, devices=None):
         """``device`` is the card unless the caller asks for ``"cpu"``; a CUDA
         device without a card raises, and ``None`` is an error. ``dtype`` is
         the relax problems' float type. ``ransac_uniforms`` [2048, 4]
         replaces the link's seeded RANSAC draw (parity tests pass the
-        reference's)."""
+        reference's). ``devices``: the shards of the relax solves (see
+        ``RelaxStage``; by default every card when ``device`` is ``"cuda"``)."""
         self.device = resolve_device(device)
         self.dtype = dtype
         self.batch_size = batch_size
@@ -153,7 +154,7 @@ class Pipeline:
 
         self._load_stage = LoadStage(device=self.device)
         self._link_stage = LinkStage(device=self.device, uniforms=ransac_uniforms)
-        self._relax_stage = RelaxStage(device=self.device, dtype=dtype)
+        self._relax_stage = RelaxStage(device=self.device, dtype=dtype, devices=devices)
 
         self._prev_loaded_ids: List[int] = []
         self._prev_linked_ids: List[int] = []

@@ -83,6 +83,7 @@ from opencalibration_tpu_torch.types.graph import (
     RelationType,
     SurfaceModel,
 )
+from opencalibration_tpu_torch.parallel.mesh import shard_devices
 from opencalibration_tpu_torch.utils.device import full_fp32, resolve_device
 from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, add_event_count
 
@@ -459,10 +460,16 @@ class RelaxStage:
     axis, or, when several groups optimise intrinsics, as one joint problem
     with the camera models and the surface shared.
     ``use_batched_solver=False`` solves groups that share nothing one after
-    another instead (``solve_groups``)."""
+    another instead (``solve_groups``).
 
-    def __init__(self, *, device="cuda", dtype=torch.float32, use_batched_solver: bool = True):
+    The batched solves spread the groups over ``devices`` (a device may
+    repeat). By default, as the reference uses every visible device: every
+    card when ``device`` is ``"cuda"`` without an index, else ``device``
+    alone; ``cuda:N`` pins one card. The problems are built on ``device``."""
+
+    def __init__(self, *, device="cuda", dtype=torch.float32, use_batched_solver: bool = True, devices=None):
         self.device = resolve_device(device)
+        self.devices = shard_devices(self.device, devices)
         self.dtype = dtype
         self.use_batched_solver = use_batched_solver
         self._groups: List[RelaxGroupState] = []
@@ -686,7 +693,9 @@ class RelaxStage:
         with PerformanceMeasure("relax solve"):
             if batch is not None:
                 solve = solve_group_batch_shared if batch.shared_intrinsics else solve_group_batch
-                stacked, info = solve(batch, pre_solve, max_iterations=iters)
+                # one device: the call as the reference's stage makes it
+                shards = {} if len(self.devices) == 1 else {"devices": self.devices}
+                stacked, info = solve(batch, pre_solve, max_iterations=iters, **shards)
                 add_event_count("lm iterations", float(info.iterations.sum()))
                 stacked = fetch_solved(stacked)
                 solved = [extract_group_params(batch, stacked, k) for k in range(len(live))]

@@ -32,7 +32,7 @@ from torch.func import jacfwd, vmap
 
 from opencalibration_tpu_torch.relax.blocks import BlockSpec
 from opencalibration_tpu_torch.relax.tangent import FIELDS, RelaxParams, TangentLayout
-from opencalibration_tpu_torch.utils.device import full_fp32
+from opencalibration_tpu_torch.utils.device import full_fp32, lane_invariant_linalg
 
 DEFAULT_MAX_ITERATIONS = 100
 # ``linear_solver="auto"`` takes the matrix-free CG path from this tangent
@@ -583,19 +583,88 @@ def solve_batch(
     ``solve``; the CG route takes the scalar Jacobi preconditioner, as the
     reference's batched solve does. Returns (params [G, ...], SolveInfo
     with [G] leaves)."""
+    ((params, info),) = solve_batch_shards([(params, blocks, free_mask, init_lambda)], layout, max_iterations,
+                                           parameter_tolerance, function_tolerance, linear_solver)
+    return params, info
+
+
+def solve_batch_shards(
+    shards: Sequence[tuple],
+    layout: TangentLayout,
+    max_iterations: int = DEFAULT_MAX_ITERATIONS,
+    parameter_tolerance: float = 1e-8,
+    function_tolerance: float = 1e-6,
+    linear_solver: str = "auto",
+):
+    """``solve_batch`` of several shards of lanes in lockstep: ``shards`` is a
+    list of (params, blocks, free_mask, init_lambda), each on its own device
+    (a device may repeat). Every iteration launches one LM iteration of each
+    shard that is not done, in shard order, then reads every shard's flag
+    in one host read, so that shards on distinct cards overlap. On the CPU a
+    lane's result does not depend on the other lanes of its call; on the
+    card the factorisations are pinned to cuSOLVER
+    (``lane_invariant_linalg``), and the batched products can still round a
+    lane's last bits by its batch. Returns one (params, SolveInfo) per
+    shard."""
     if linear_solver == "auto":
         linear_solver = route(layout.dim)
     if linear_solver not in ("cholesky", "cg"):
         raise ValueError(f"unknown linear solver {linear_solver!r}")
-    with full_fp32():
-        return _solve_batch_impl(
-            params, tuple(blocks), layout, free_mask, max_iterations, init_lambda,
-            parameter_tolerance, function_tolerance, linear_solver,
-        )
+    with full_fp32(), lane_invariant_linalg():
+        return run_lockstep([
+            _batch_iterations(params, tuple(blocks), layout, free, max_iterations, lam0, parameter_tolerance,
+                              function_tolerance, linear_solver)
+            for params, blocks, free, lam0 in shards
+        ])
 
 
-def _solve_batch_impl(params, blocks, layout, free_mask, max_iterations, init_lambda,
+def _advance(run, stop):
+    """Send ``stop`` to an LM generator: (True, its result) once it returns,
+    else (False, its next ``done`` flag)."""
+    try:
+        return False, run.send(stop)
+    except StopIteration as end:
+        return True, end.value
+
+
+def run_lockstep(runs: Sequence) -> list:
+    """Drive LM generators (``_batch_iterations``) in lockstep and return
+    their results in order. Each generator yields a 0-d ``done`` flag on its
+    device before every iteration; all live flags are read in one host read
+    (one flag: ``bool``, the single solve's one sync), and each generator is
+    told whether to stop or to run its next iteration."""
+    results = [None] * len(runs)
+    live = {}
+    for k, run in enumerate(runs):
+        finished, value = _advance(run, None)
+        if finished:
+            results[k] = value
+        else:
+            live[k] = value
+    while live:
+        flags = list(live.values())
+        if len(flags) == 1:
+            stops = [bool(flags[0])]
+        else:
+            dev0 = flags[0].device
+            stops = torch.stack([f.to(dev0) for f in flags]).tolist()
+        nxt = {}
+        for k, stop in zip(list(live), stops):
+            finished, value = _advance(runs[k], stop)
+            if finished:
+                results[k] = value
+            else:
+                nxt[k] = value
+        live = nxt
+    return results
+
+
+def _batch_iterations(params, blocks, layout, free_mask, max_iterations, init_lambda,
                       parameter_tolerance, function_tolerance, linear_solver):
+    """The LM of ``solve_batch`` as a generator (see ``run_lockstep``): it
+    yields ``done.all()`` before each iteration, runs the iteration when sent
+    False, and returns (params, SolveInfo) when sent True or at
+    ``max_iterations``."""
     dtype, dev = params.quats.dtype, params.quats.device
     free = torch.as_tensor(free_mask, device=dev)
     G, T = free.shape
@@ -621,7 +690,9 @@ def _solve_batch_impl(params, blocks, layout, free_mask, max_iterations, init_la
     done = ~torch.isfinite(cost0)
     iterations = torch.zeros(G, dtype=torch.int32, device=dev)
     it = 0
-    while it < max_iterations and not bool(done.all()):  # one host sync per iteration
+    while it < max_iterations:
+        if (yield done.all()):  # one host sync per iteration
+            break
         live = ~done
         if linear_solver == "cg":
             quads = _lane_call(lambda q, b, fr: _quads_all(q, b, fr), p, blocks, free)

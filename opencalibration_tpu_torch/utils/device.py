@@ -38,3 +38,25 @@ def full_fp32():
         yield
     finally:
         mm.allow_tf32, cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def lane_invariant_linalg():
+    """Factor every matrix of a lane-batched solve on the card with cuSOLVER.
+
+    PyTorch's default picks the factorisation by the batch size (a batched
+    cuBLAS or MAGMA kernel for several small matrices, cuSOLVER for one), so
+    a lane's last bits would depend on how many lanes share its call, and
+    the same group would solve differently on one device and on a shard.
+    Pinned, a lane's factorisation is the same in any batch
+    (``tools/torch_shard_bits.py``). Restores the previous choice on exit;
+    nothing changes where there is no card."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)

@@ -284,10 +284,17 @@ def test_padded_lanes_stop_after_one_iteration_and_cg_lanes_match_single_solves(
                                        atol=LANE_ABS, err_msg=f"lane {g} {f}")
 
 
-def test_several_devices_are_the_multi_device_path(runs):
-    _, t_batch, pre_solve, _ = _pair(runs, 0)
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        TGS.solve_group_batch(t_batch, pre_solve, devices=["cuda:0", "cuda:1"])
+def test_several_devices_are_the_multi_device_path(runs, cold):
+    """Several devices take the multi-device path: the three groups padded to
+    four lanes and cut into two shards (here both on the CPU), each solved
+    by the lane-batched LM, in lockstep; every lane equals the one-device
+    solve's bit for bit, with equal iterations."""
+    _, t_batch, pre_solve, iters = _pair(runs, 0)
+    whole, whole_info = cold[-1]
+    sharded, sharded_info = TGS.solve_group_batch(t_batch, pre_solve, max_iterations=iters, devices=["cpu", "cpu"])
+    np.testing.assert_array_equal(sharded_info.iterations.numpy(), whole_info.iterations.numpy())
+    for f in FIELDS:
+        assert torch.equal(getattr(sharded, f), getattr(whole, f)), f
 
 
 def test_serial_route_stays_available(entry, runs):

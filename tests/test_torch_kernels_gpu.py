@@ -518,6 +518,60 @@ def test_batched_group_solve_cuda_matches_cpu(cuda, three_group_batch):
 
 
 @pytest.mark.gpu
+def test_batched_group_solve_on_two_card_shards_matches_one_device(cuda, three_group_batch):
+    """The three-group batch on the card, its lanes cut into two shards of
+    the same card: every lane equal to the one-device solve bit for bit or
+    within 1e-12 of each leaf's largest magnitude (at least 1), with equal
+    iterations. (A lane's last bits depend on its batch through the batched
+    products; the lane-batched LM pins cuSOLVER for the factorisations.)"""
+    import copy
+
+    from opencalibration_tpu_torch import interop
+    from opencalibration_tpu_torch.parallel import group_solver as GS
+    from opencalibration_tpu_torch.relax.tangent import FIELDS
+
+    batch, pre_solve, iters, _, _ = three_group_batch
+    on_card = interop.group_batch_from(batch, cuda)
+    one, one_info = GS.solve_group_batch(copy.deepcopy(on_card), pre_solve, max_iterations=iters)
+    two, two_info = GS.solve_group_batch(on_card, pre_solve, max_iterations=iters, devices=[cuda, cuda])
+    assert torch.equal(one_info.iterations, two_info.iterations) and two.quats.is_cuda
+    for f in FIELDS:
+        a, b = getattr(two, f), getattr(one, f)
+        assert torch.equal(a, b) or float((a - b).abs().max()) <= 1e-12 * max(1.0, float(b.abs().max())), f
+
+
+@pytest.mark.gpu
+def test_shared_solver_on_three_card_shards_matches_one(cuda):
+    """The joint solver of three groups in float64 on the card, on three
+    shards of it against one: within 1e-9 relative, equal iterations, the
+    shared focal equal in every group."""
+    from opencalibration_tpu_torch.parallel import group_solver as GS
+    from opencalibration_tpu_torch.relax.tangent import FIELDS
+
+    out = []
+    for devices in (None, [cuda] * 3):
+        batch = GS.build_group_batch(_points_groups(cuda, torch.float64), shared_intrinsics=True)
+        out.append(GS.solve_group_batch_shared(batch, pre_solve=False, max_iterations=40, devices=devices))
+    (one, one_info), (three, three_info) = out
+    assert int(one_info.iterations) == int(three_info.iterations) > 2
+    assert torch.equal(three.focal[0], three.focal[1]) and torch.equal(three.focal[0], three.focal[2])
+    assert abs(float(three.focal[0, 0]) - 600.0) < 0.5
+    for f in FIELDS:
+        a, b = getattr(three, f), getattr(one, f)
+        if a.numel():
+            assert float((a - b).abs().max()) <= 1e-9 * max(float(b.abs().max()), 1e-300), f
+
+
+@pytest.mark.gpu
+def test_dryrun_multidevice_on_two_card_shards(cuda):
+    from opencalibration_tpu_torch.parallel import dryrun
+
+    dryrun.dryrun_multidevice([cuda, cuda])
+    fn, args = dryrun.entry(cuda)
+    assert all(torch.isfinite(x).all() and x.is_cuda for x in fn(*args))
+
+
+@pytest.mark.gpu
 def test_fed_extraction_cuda_matches_cpu(cuda):
     """``extract_features(diffusion="fed")`` of two overlapping texture crops:
     equal keypoint counts, 99 % of the keypoints within 0.01 px."""
