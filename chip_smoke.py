@@ -12,8 +12,9 @@ Phases, each printing its lines:
    ``cuobjdump``);
 3. the Hamming top-2 kernel against its plain PyTorch version on the card,
    bit for bit and twice, on the contract's edge cases, on a set 2 split over
-   a cluster with ties across splits, and at the main path's shapes
-   [42, 2048, 2048] and [16, 1024, 1024]; then at both shapes the kernel,
+   a cluster with ties across splits, and at the main paths' shapes
+   [42, 2048, 2048], [16, 1024, 1024] and the bench twin's calibration step
+   [42, 1024, 1024]; then at the three shapes the kernel,
    ``match_descriptors``, the plain version and ``torch._int_mm`` (the +-1
    product alone, the library yardstick) timed with CUDA events, beside the
    kernel's bound;
@@ -52,9 +53,10 @@ Phases, each printing its lines:
 8. a 9-image survey (3 x 3 at 320 x 240; the full image size over this
    relief is phase 9's) rendered over terrain with
    8 m of sinusoidal relief (70 m wavelength), driven from
-   INITIAL_PROCESSING through MESH_REFINEMENT to the entry of
-   CAMERA_PARAMETER_RELAX (cut there for time; phase 10 starts from that
-   state): seconds per ``iterate_once`` and per state, mesh
+   INITIAL_PROCESSING through MESH_REFINEMENT (its finest grid level 1,
+   which caps it at 11 passes) to the entry of CAMERA_PARAMETER_RELAX (both
+   cut for time;
+   phase 10 starts from that state): seconds per ``iterate_once`` and per state, mesh
    vertices and triangles and the grid level after every pass, every
    solve's tangent dimension and route, LM iterations, peak
    memory, the stage counters, the orientation error after
@@ -79,7 +81,8 @@ Phases, each printing its lines:
    the two compared; then the same pipeline carries on through
    GENERATE_THUMBNAIL, DENSIFY_MESH, DENSE_MESH_RELAX, GENERATE_LAYERS,
    COLOR_BALANCE and BLEND_LAYERS to COMPLETE with the reference's defaults
-   (64 MP cap, tiles of 256, 3 x 3 taps, four blend levels), the dense mesh
+   (tiles of 256, 3 x 3 taps, four blend levels; the raster capped at 32 MP, a
+   half of the default, for time), the dense mesh
    on and every output path set: the dense features per image, pairs
    matched and ``gated_match``'s time a pair, matches, tracks and points
    kept (checked: at least 2.5 x the sparse track points, their heights and
@@ -137,7 +140,8 @@ Phases, each printing its lines:
    (decision equal, models within 1e-4 up to sign, flags 99.5 % equal);
    ``relax`` with ``points_3d`` on phase 6's 2 x 3 survey by its own route
    (CG: orientations within 0.1 degrees, points within 5e-3 m, its steps
-   are inexact) and by the dense route (within 1e-6 degrees and 1e-6 m);
+   are inexact) and by the dense route for 3 LM iterations (within 1e-6
+   degrees and 1e-6 m; cut for time);
    ``save_reference_graph`` of phase 7's final graph and
    ``load_reference_graph`` (equal ids, descriptors bit for bit, poses within
    1e-12, the file's size);
@@ -156,15 +160,33 @@ Phases, each printing its lines:
    JAX package's joint solve of the same state (1e-6 relative; it lands 5.5 %
    off the truth, where phase 9's one group recovers 1.6 %: printed beside),
    iterations, seconds and peak memory. On a host with several cards (c) and
-   (d) run again on distinct cards.
+   (d) run again on distinct cards;
+15. the bench twins at survey scale (``opencalibration_tpu_torch/bench``):
+   (a) ``python -m opencalibration_tpu_torch.bench.bench`` in a subprocess
+   with ``BENCH_SKIP_CPU_E2E=1``, run beside (b) and (c) on the same card
+   for the script's time: its one JSON line parses, ``value`` > 0,
+   both 24-image legs reach COMPLETE with the three GeoTIFFs non-empty, the
+   median pose error at most 0.02 m and the focal error at most 12 px (3 %
+   of 400); (b) bench_e2e.py's 104-image survey (8 x 13 gray JPEGs at
+   320 x 240) in one pipeline in batches of 16 for 5 INITIAL_PROCESSING
+   iterates, then a checkpoint and ``ip_sidecar.json``, and the pipeline
+   dropped; (c) ``bench_e2e.run_config(104, batch_size=16)`` with
+   ``BENCH_E2E_CHECKPOINT`` on that directory resumes there, its roll-back
+   keeping some of the graph's nodes and not all, and runs to COMPLETE
+   (ortho off, as the twin's default): every one of the 104 paths in the
+   graph exactly once, the
+   bounds of (a), at least one MESH_REFINEMENT pass of 3 pose groups or more
+   in one batched solve, and per state its seconds, solves, groups, lanes,
+   tangent dimensions, routes and LM iterations.
 
 The ``kernels`` line gives each kernel's launches on the main path, phase 9
 (INITIAL_PROCESSING through the camera parameters, the dense mesh and the
 ortho tail to COMPLETE), and on the paths of phases 12 (counted in the
 runner's own process), 8, 7 (INITIAL_PROCESSING to the end of
-FINAL_GLOBAL_RELAX), 5 and 14 (the multi-device paths, where no link runs), each taken with the counter set to 0
+FINAL_GLOBAL_RELAX), 5, 14 (the multi-device paths, where no link runs) and 15 (the bench twin, counted in its
+own process, and the resumed 104-image run), each taken with the counter set to 0
 just before the path and read just after it, and phase 3's times and bounds
-(``*_link`` at the link's shape). Run from the repository root with
+(``*_link`` at the link's shape, ``*_bench`` at the bench twin's). Run from the repository root with
 ``python3 chip_smoke.py`` (``--phases 2,9`` runs a subset and prints neither
 the ``kernels`` nor the ``ok`` line). Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
@@ -187,6 +209,8 @@ import time
 import numpy as np
 import torch
 
+from opencalibration_tpu_torch.bench import bench as BB
+from opencalibration_tpu_torch.bench import bench_e2e as BE
 from opencalibration_tpu_torch.dense import dense_stereo as DS
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
@@ -259,6 +283,19 @@ CHECKPOINT_VERTEX_REL, CHECKPOINT_CLOUD_M = 1e-9, 6e-7
 # same texture, poses 0.2 degrees off, the CPU reads 5.3 with the balance and
 # 8.1 without it at 3 m (14 and 15 unsmoothed)
 ORTHO_COVERED_SHARE, ORTHO_MEDIAN_L, ORTHO_MARGIN_M, ORTHO_SMOOTH_M = 0.98, 7.0, 15.0, 3.0
+# phase 9's raster cap: half the reference's 64 MP, for the script's time. Nine
+# tenths of the raster's tiles hold no image and each costs host time (ROADMAP
+# P8); at 64 MP GENERATE_LAYERS and BLEND_LAYERS took 200 of the script's 979 s,
+# at 16 MP 63 s (NVIDIA H100 80GB HBM3, 700 W). No phase runs the tail at 64 MP:
+# the bench twins' 24-image rasters of phase 15 stay under 1 MP
+ORTHO_MEGAPIXELS = 32.0
+# MESH_REFINEMENT's finest grid level on phase 8's pipeline: 1 in place of the
+# pipeline's 3, cut for time. It also caps the passes at 5 x (1 + 1) + 1 = 11
+# (phase 9 runs the default's 21); over this relief every pass adds triangles,
+# so all 11 stay at level 0, and the mesh follows the relief within the bounds.
+# (Phase 7 keeps its levels: phase 14 (c) solves its last MESH_REFINEMENT batch
+# again, and a level-0 batch parted 1.4e-12 on two shards.)
+MESH_GRID_LEVELS = 1
 GAIN_SPREAD = 0.1
 BALANCE_CHECK_MEGAPIXELS = 2.0
 THUMBNAIL_HW = (43, 58)  # of a 1600 x 1200 image
@@ -297,8 +334,10 @@ DEGENSAC_PLANAR, DEGENSAC_SEED = 0.85, 7
 # against 42 LM iterations, points 1.88e-3 m apart on an NVIDIA H100 80GB
 # HBM3 at 700 W), where a pixel of this survey covers 0.15 m of ground
 POINTS_DEG, POINTS_M = 0.1, 5e-3
-# the same problem by the dense route (Cholesky) on both devices: exact steps
-POINTS_DENSE_DEG, POINTS_DENSE_M = 1e-6, 1e-6
+# the same problem by the dense route (Cholesky) on both devices: exact steps,
+# so the two devices stay together iteration by iteration; compared after a
+# few iterations (the CPU took 26.5 s for the 16 to convergence)
+POINTS_DENSE_DEG, POINTS_DENSE_M, POINTS_DENSE_ITERATIONS = 1e-6, 1e-6, 3
 INTERCHANGE_POSE = 1e-12
 # phase 14: the sharded bundle adjustment's float32 step bound between shard
 # counts (the JAX package's tests/test_sharded_ba.py) and its focal bound; the
@@ -319,6 +358,15 @@ SCALE_GROUP_SIZE, SCALE_SHARDS, SCALE_REL = 8, 3, 1e-9
 # (2031.3613 px, phase 9's pass 0), so the three-group focal is held to the
 # reference, within the shared solver's parity bound, not to the truth
 SCALE_REFERENCE_FOCAL, SCALE_REFERENCE_REL = 2110.7832, 1e-6
+# phase 15: the bench twins' bounds against the render's truth (the JAX
+# package's own runs of these surveys read 0.000-0.001 m; 12 px is 3 % of the
+# true 400 px, the focal bound of phase 9), the resumed survey, its batch and
+# cut (after 5 iterates batches 1-3 are relaxed, 4 linked and 5 loaded, so
+# the roll-back keeps the nodes of 1-3 that batch 4's edges do not reach) and
+# the pose groups one MESH_REFINEMENT solve must reach (POSE_GROUP_SIZE 50)
+BENCH_POSE_M, BENCH_FOCAL_PX = 0.02, 12.0
+BENCH_IMAGES, BENCH_CUT_BATCH, BENCH_CUT_ITERATES, BENCH_MIN_POSE_GROUPS = 104, 16, 5, 3
+BENCH_GEOTIFFS = ("ortho.tif", "dsm.tif", "camera_ids.tif")
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
 # NVIDIA's published H100 SXM peaks (dense, at 700 W): int8 tensor cores and
@@ -460,8 +508,10 @@ def phase_kernel(smi):
     calib = ("calibration step [42, 2048, 2048]",) + HC.main_path_case(rng, 42, 2048)
     link = ("pipeline link chunk [16, 1024, 1024]",) + HC.main_path_case(rng, ST.LINK_CHUNK, ST.LINK_SUBSET)
     split = ("set 2 split over a cluster, ties across splits",) + HC.split_ties_case(rng)
+    bench = (f"bench twin's calibration step [42, {BB.MAX_FEATURES}, {BB.MAX_FEATURES}]",) + HC.main_path_case(
+        rng, 42, BB.MAX_FEATURES)
     max_err = 0.0
-    for name, p1, p2, v1, v2 in HC.kernel_cases(rng) + [split, calib, link]:
+    for name, p1, p2, v1, v2 in HC.kernel_cases(rng) + [split, calib, link, bench]:
         p1, p2, v1, v2 = (t.to(dev).contiguous() for t in (p1, p2, v1, v2))
         top2 = hamming_cuda.hamming_top2(p1, p2, v2)
         again = hamming_cuda.hamming_top2(p1, p2, v2)
@@ -483,7 +533,10 @@ def phase_kernel(smi):
 
     out = _timed(*(t.to(dev).contiguous() for t in calib[1:]), "[42, 2048, 2048]", smi)
     link_out = _timed(*(t.to(dev).contiguous() for t in link[1:]), "[16, 1024, 1024]", smi)
-    return dict(max_abs_err=max_err, **out, **{f"{k}_link": v for k, v in link_out.items()})
+    bench_out = _timed(*(t.to(dev).contiguous() for t in bench[1:]), f"[42, {BB.MAX_FEATURES}, {BB.MAX_FEATURES}]",
+                       smi)
+    return dict(max_abs_err=max_err, **out, **{f"{k}_link": v for k, v in link_out.items()},
+                **{f"{k}_bench": v for k, v in bench_out.items()})
 
 
 def phase_cuda_vs_cpu():
@@ -775,53 +828,33 @@ def _free_cameras(built):
     return {nid: c in measured for nid, c in built.cam_index.items() if free[lay.rot_off + 3 * c]}
 
 
-class _SolveRecorder:
-    """Records every relax solve of the pipeline (the stage looks its
-    solvers up by name): groups, bucketed lanes, each group's free cameras
-    and whether a measurement reaches each, each group's tangent
-    dimension, the batch layout's dimension and route, LM iterations per
-    lane (or of the joint solve) and seconds; with ``keep_last`` a copy of
-    the last batched solve's batch as it entered the solve, its pre-solve
-    flag, LM budget and result."""
-
-    _NAMES = ("solve_group_batch", "solve_group_batch_shared")
+class _SolveRecorder(BE.SolveLog):
+    """``bench_e2e.SolveLog``'s record of every relax solve, with each
+    group's free cameras and whether a measurement reaches each, and each
+    group's tangent dimension; with ``keep_last`` a copy of the last batched
+    solve's batch as it entered the solve, its pre-solve flag, LM budget and
+    result."""
 
     def __init__(self, keep_last=False):
-        self.solves = []
+        super().__init__()
         self.last = None
         self.keep_last = keep_last
-        self._orig = {n: getattr(ST, n) for n in self._NAMES}
 
-    def __enter__(self):
-        def wrap(name):
-            orig = self._orig[name]
-
-            def recording(batch, pre_solve, *args, **kw):
-                entry = copy.deepcopy(batch) if self.keep_last and name == "solve_group_batch" else None
-                t0 = time.perf_counter()
-                out = orig(batch, pre_solve, *args, **kw)
-                _sync()
-                it = out[1].iterations
-                self.solves.append(dict(
-                    kind=name, groups=batch.num_groups, lanes=GS._bucket(batch.num_groups, minimum=1),
-                    free=[_free_cameras(b) for b in batch.builts],
-                    dims=[b.layout.dim for b in batch.builts], batch_dim=batch.layout.dim,
-                    route=LM.route(batch.layout.dim), lm=[int(i) for i in it.reshape(-1).tolist()],
-                    seconds=time.perf_counter() - t0,
-                ))
-                if entry is not None:
-                    self.last = dict(batch=entry, pre_solve=pre_solve, kw=dict(kw), out=out)
-                return out
-
+    def _recording(self, name, solve):
+        recording = super()._recording(name, solve)
+        if not (self.keep_last and name == "solve_group_batch"):
             return recording
 
-        for name in self._NAMES:
-            setattr(ST, name, wrap(name))
-        return self
+        def keeping(batch, pre_solve, *args, **kw):
+            entry = copy.deepcopy(batch)  # before the solve moves the batch's dampings
+            out = recording(batch, pre_solve, *args, **kw)
+            self.last = dict(batch=entry, pre_solve=pre_solve, kw=dict(kw), out=out)
+            return out
 
-    def __exit__(self, *exc):
-        for name, fn in self._orig.items():
-            setattr(ST, name, fn)
+        return keeping
+
+    def record(self, solve, batch, pre_solve, kw, out):
+        solve.update(free=[_free_cameras(b) for b in batch.builts], dims=[b.layout.dim for b in batch.builts])
 
 
 def _local_offset(p, positions):
@@ -880,6 +913,7 @@ def phase_mesh_refinement(directory):
           "FINAL_GLOBAL_RELAX, its plan reuse and the dense-against-CG solve run in phase 7")
     p, paths, positions, quats_gt, ip_launches, _ = phase_pipeline_full_size(directory, RELIEF_M, "mesh-ip", cfg=MESH)
     _orientation_error(p, paths, quats_gt, "mesh-ip", bounded=False)
+    p._MESH_MAX_GRID_LEVELS = MESH_GRID_LEVELS
     performance.reset_performance_counters()
     performance.enable_performance_counters(True)
     torch.cuda.reset_peak_memory_stats()
@@ -916,7 +950,7 @@ def phase_mesh_refinement(directory):
           + ", ".join(f"{k} {len(v)} x, {sum(v):.4f} s" for k, v in per_state.items()))
     for i, st in enumerate(steps):
         solves = "; ".join(
-            f"{s['groups']} group(s) dims {s['dims']} batch dim {s['batch_dim']} -> {s['route']}, LM {s['lm']}"
+            f"{s['groups']} group(s) dims {s['dims']} batch dim {s['T']} -> {s['route']}, LM {s['lm']}"
             for s in st["solves"]
         ) or "no solve"
         print(f"[mesh] pass {i}: {st['state']} level {st['level']}, {st['seconds']:.4f} s, "
@@ -1023,7 +1057,7 @@ def phase_multi_group(directory):
           + ", ".join(f"{k} {len(v)} x, {sum(v):.4f} s" for k, v in per_state.items()))
     for i, st in enumerate(steps):
         solves = "; ".join(
-            f"{x['kind']}: {x['groups']} group(s) in {x['lanes']} lane(s), dims {x['dims']}, T = {x['batch_dim']} -> "
+            f"{x['kind']}: {x['groups']} group(s) in {x['lanes']} lane(s), dims {x['dims']}, T = {x['T']} -> "
             f"{x['route']}, LM per lane {x['lm']}, {x['seconds']:.3f} s" for x in st["solves"]) or "no solve"
         print(f"[multi] pass {i}: {st['state']} (level {st['level']}), {st['seconds']:.4f} s; {solves}")
     print("[multi] stage counters (host clock; seconds):")
@@ -1381,6 +1415,7 @@ def phase_ortho_tail(p, paths, positions, directory):
     p.ortho_path, p.dsm_path = os.path.join(out, "ortho.tif"), os.path.join(out, "dsm.tif")
     p.camera_id_path, p.thumbnail_path = os.path.join(out, "camera_ids.tif"), os.path.join(out, "thumbnail.png")
     p.textured_obj_prefix = os.path.join(out, "model")
+    p.ortho_max_megapixels = ORTHO_MEGAPIXELS
     p.skip_dense_mesh = False
     sparse = sum(len(c) for c in p.surfaces[0].cloud)
     tiles, dense = [], {}
@@ -2045,8 +2080,10 @@ def _points_entry():
         t0 = time.perf_counter()
         p = built.params
         if pre:
-            p, _ = LM.solve(p, built.blocks, built.layout, built.surface_free_mask, linear_solver="cholesky")
-        p, info = LM.solve(p, built.blocks, built.layout, built.free_mask, linear_solver="cholesky")
+            p, _ = LM.solve(p, built.blocks, built.layout, built.surface_free_mask, linear_solver="cholesky",
+                            max_iterations=POINTS_DENSE_ITERATIONS)
+        p, info = LM.solve(p, built.blocks, built.layout, built.free_mask, linear_solver="cholesky",
+                           max_iterations=POINTS_DENSE_ITERATIONS)
         dense[dev] = (p.quats.cpu(), p.points.cpu(), int(info.iterations), time.perf_counter() - t0)
     (pa, ca, ia, sa, lay), (pb, cb, ib, sb, _) = out["cuda"], out["cpu"]
     ang = max(float(_angles_deg(x.orientation, y.orientation)) for x, y in zip(pa, pb))
@@ -2057,7 +2094,8 @@ def _points_entry():
     (qa, xa, ja, ta), (qb, xb, jb, tb) = dense["cuda"], dense["cpu"]
     dang = float(_angles_deg(qa, qb).max())
     ddm = float((xa - xb).abs().max())
-    print(f"[entry] the same problem by the dense route: card {ja} LM iterations in {ta:.3f} s, CPU {jb} in "
+    print(f"[entry] the same problem by the dense route, cut for time at {POINTS_DENSE_ITERATIONS} LM iterations: "
+          f"card {ja} LM iterations in {ta:.3f} s, CPU {jb} in "
           f"{tb:.3f} s; orientations {dang:.2e} deg apart (bound {POINTS_DENSE_DEG}), points {ddm:.2e} m apart "
           f"(bound {POINTS_DENSE_M})")
     if not (ang <= POINTS_DEG and dm <= POINTS_M):
@@ -2199,6 +2237,127 @@ def phase_runner():
     return result["launches"]
 
 
+def _bench_bounds(result, label):
+    """The bench bounds on one result dict of ``bench_e2e.run_config``."""
+    print(f"[bench] {label}: {result['n_images']} images, {result['wall_s']} s, {result['images_per_sec_e2e']} "
+          f"images/s, {result['lm_iterations']} LM iterations, median pose error {result['median_pose_err_m']} m "
+          f"(bound {BENCH_POSE_M}), focal error {result.get('focal_err_px')} px (bound {BENCH_FOCAL_PX}), "
+          f"final state {result['final_state']}, Hamming kernel launches {result['hamming_launches']}")
+    if result["final_state"] != PipelineState.COMPLETE:
+        raise AssertionError(f"{label} stopped at {result['final_state']}")
+    if not (result["median_pose_err_m"] <= BENCH_POSE_M and result["focal_err_px"] <= BENCH_FOCAL_PX):
+        raise AssertionError(f"{label} misses the bounds: {result}")
+    if result["hamming_launches"] == 0:
+        raise AssertionError(f"{label} never launched the Hamming kernel")
+
+
+def _bench_line(proc, out, err, t0):
+    """Wait for the bench's process of phase 15 (a) and check its line."""
+    proc.wait(timeout=900)
+    took = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench failed ({proc.returncode}): {stdout[-3000:]}{stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    print(f"[bench] (a) python -m opencalibration_tpu_torch.bench.bench (BENCH_SKIP_CPU_E2E=1): exit 0 in "
+          f"{took:.1f} s (process start included, beside (b) and (c)), {len(lines)} line(s) on its standard "
+          "output; the last:")
+    print(f"[bench]   {lines[-1]}")
+    if not line["value"] > 0 or line["e2e"]["cpu_node_1core"] is not None:
+        raise AssertionError(f"the bench line is malformed: {line}")
+    for leg in ("cold", "warm"):
+        e2e = line["e2e"][leg]
+        _bench_bounds(e2e, f"(a) 24-image leg, {leg}")
+        sizes = e2e.get("ortho_artifacts", {})
+        if any(sizes.get(name, 0) <= 0 for name in BENCH_GEOTIFFS):
+            raise AssertionError(f"the {leg} leg did not write the three GeoTIFFs: {sizes}")
+    print(f"[bench] (a) step {line['step_s']:.4f} s ({line['compute_kernel']['device_ips']} images/s, "
+          f"{line['compute_kernel']['vs_cpu']}x the CPU), value {line['value']} images/s; GeoTIFFs "
+          f"{line['e2e']['warm']['ortho_artifacts']}; on {line['device']}")
+    return sum(line["hamming_launches"].values())
+
+
+def phase_bench():
+    """The bench twins at survey scale: (a) the bench script in its own
+    process, started first and run beside (b) and (c) on the same card, for
+    the script's time (so neither's seconds are for comparison); (b) the
+    104-image survey in batches of 16 cut after five INITIAL_PROCESSING
+    iterates; (c) ``run_config`` resumed from that cut to COMPLETE. Returns
+    the Hamming kernel's launches of (a) (counted in its process) and of
+    (c)."""
+    env = dict(os.environ, BENCH_SKIP_CPU_E2E="1")
+    env.pop("BENCH_E2E_ORTHO", None)
+    env.pop("BENCH_E2E_CHECKPOINT", None)
+    saved = {k: os.environ.pop(k, None) for k in ("BENCH_E2E_ORTHO", "BENCH_E2E_CHECKPOINT")}
+    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+        t_bench = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "opencalibration_tpu_torch.bench.bench"], stdout=out,
+                                stderr=err, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+        try:
+            with tempfile.TemporaryDirectory() as ckpt:
+                t0 = time.perf_counter()
+                paths, _, _, gen_s = BE.bench_survey(BENCH_IMAGES, device="cuda")
+                p = BE.make_pipeline(BENCH_CUT_BATCH, device="cuda")
+                p.add(paths)
+                for _ in range(BENCH_CUT_ITERATES):
+                    p.iterate_once()
+                if p.get_state() != PipelineState.INITIAL_PROCESSING:
+                    raise AssertionError(f"the cut is not inside INITIAL_PROCESSING: {p.get_state()}")
+                if not p.save_checkpoint(ckpt):
+                    raise AssertionError("save_checkpoint failed")
+                BE._save_ip_sidecar(p, ckpt)
+                side = json.load(open(os.path.join(ckpt, "ip_sidecar.json")))
+                print(f"[bench] (b) {len(paths)} images (survey {gen_s:.2f} s) in batches of {BENCH_CUT_BATCH}, cut "
+                      f"after {BENCH_CUT_ITERATES} iterates of INITIAL_PROCESSING: {side['graph_nodes']} nodes, "
+                      f"{side['graph_edges']} edges, {len(side['pending'])} loaded and {len(side['linked'])} linked "
+                      f"(the linked batch and the nodes its edges reach) in flight, {len(side['remaining'])} queued; "
+                      f"{time.perf_counter() - t0:.1f} s")
+                del p
+
+                os.environ["BENCH_E2E_CHECKPOINT"] = ckpt
+                hamming_cuda.hamming_top2.launches = 0
+                result = BE.run_config(BENCH_IMAGES, batch_size=BENCH_CUT_BATCH)
+                resume_launches = hamming_cuda.hamming_top2.launches
+            bench_launches = _bench_line(proc, out, err, t_bench)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+    print(f"[bench] (c) run_config({BENCH_IMAGES}, batch_size={BENCH_CUT_BATCH}) with BENCH_E2E_CHECKPOINT: resumed "
+          f"at {result['resumed_at']}, {result['resume_kept_nodes']} nodes kept by the roll-back; at the end "
+          f"{result['n_nodes']} nodes, {result['n_survey_paths_in_graph']} of the survey's paths; peak "
+          f"{result['peak_memory_gib']:.3f} GiB; on {result['device']}")
+    for state, seconds in result["state_s"].items():
+        solves = result["solves"].get(state)
+        print(f"[bench]   {state}: {seconds:.4f} s" + (
+            f"; {solves['solves']} solves, up to {solves['max_groups']} groups, lanes {solves['lanes']}, T "
+            f"{solves['T']}, routes {solves['routes']}, {solves['lm_iterations']} LM iterations, "
+            f"{solves['seconds']:.3f} s solving" if solves else "; no relax solve"))
+    print(f"[bench] (c) result: {json.dumps(result)}")
+    _bench_bounds(result, f"(c) {BENCH_IMAGES}-image run, resumed")
+    if result["resumed_at"] != PipelineState.INITIAL_PROCESSING:
+        raise AssertionError(f"the run did not resume inside INITIAL_PROCESSING: {result['resumed_at']}")
+    if not 0 < result["resume_kept_nodes"] < side["graph_nodes"]:
+        raise AssertionError(f"the roll-back is not partial: {result['resume_kept_nodes']} of {side['graph_nodes']} "
+                             "nodes kept")
+    if not result["n_nodes"] == result["n_survey_paths_in_graph"] == BENCH_IMAGES:
+        raise AssertionError(f"the resumed graph does not hold each of the {BENCH_IMAGES} images once: "
+                             f"{result['n_nodes']} nodes, {result['n_survey_paths_in_graph']} survey paths")
+    mesh = result["solves"].get(PipelineState.MESH_REFINEMENT, {})
+    if mesh.get("max_groups", 0) < BENCH_MIN_POSE_GROUPS:
+        raise AssertionError(f"no MESH_REFINEMENT solve of {BENCH_MIN_POSE_GROUPS} pose groups or more: {mesh}")
+    if resume_launches == 0:
+        raise AssertionError("the resumed run never launched the Hamming kernel")
+    return bench_launches, resume_launches
+
+
 def main(argv=()):
     """With no arguments: every phase, then the ``kernels`` line and the
     ``ok`` line. ``--phases 1,2,9`` runs those phases alone (1 and 2 always
@@ -2218,34 +2377,49 @@ def main(argv=()):
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label):  # the seconds of each phase, on the host clock
+        laps.append(time.perf_counter())
+        print(f"[time] {label}: {laps[-1] - laps[-2]:.1f} s ({laps[-1] - t_start:.1f} s in all)")
+
     name, count, smi = phase_device()
     phase_build()
+    lap("phases 1-2")
     kernel = phase_kernel(smi) if want(3) else None
+    lap("phase 3")
     if want(4):
         phase_cuda_vs_cpu()
+    lap("phase 4")
     step_launches = phase_full_size() if want(5) else None
+    lap("phase 5")
     if want(6):
         phase_pipeline_cuda_vs_cpu()
+    lap("phase 6")
     ip_launches = mesh_launches = calib_launches = relief_entry = multi = multi_last = calib_entry = None
     multidev_launches = None
     if want(7):
-        t7 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
             multi, ip_launches, multi_last = phase_multi_group(d)
             images = np.stack([_read_pgm(os.path.join(d, f)) for f in sorted(os.listdir(d))
                                if f.endswith(".pgm")][:2]).astype(np.float32) * F.U8_SCALE
-        print(f"[multi] phase 7: {time.perf_counter() - t7:.1f} s")
+    lap("phase 7")
     if want(8) or want(10):  # phase 10 starts from a state of phase 8
         with tempfile.TemporaryDirectory() as d:
             mesh_launches, relief_entry = phase_mesh_refinement(d)
+    lap("phase 8")
     if want(9):
         with tempfile.TemporaryDirectory() as d:
             calib_launches, calib_entry = phase_camera_relax(d)
+    lap("phase 9")
     if want(10):
         phase_shared_solver(relief_entry)
+    lap("phase 10")
     if want(11):
         phase_ortho_cuda_vs_cpu()
+    lap("phase 11")
     runner_launches = phase_runner() if want(12) else None
+    lap("phase 12")
     if want(13):
         if multi is None:  # run alone: phase 6's survey and two views of phase 7's scene
             images = np.stack([v.cpu().numpy() for v in _scene(dict(MULTI, rows=1, cols=2), "cuda")[0]])
@@ -2254,8 +2428,14 @@ def main(argv=()):
                 multi = Pipeline(batch_size=3, device="cuda")
                 _initial_processing(multi, paths)
         phase_entry_points(images, multi)
+    lap("phase 13")
     if want(14):
         multidev_launches = phase_multi_device(multi_last, calib_entry)
+    lap("phase 14")
+    bench_launches = resume_launches = None
+    if want(15):
+        bench_launches, resume_launches = phase_bench()
+    lap("phase 15")
     _assert_standalone("end")
     print(f"[end] {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
@@ -2273,7 +2453,11 @@ def main(argv=()):
                "pipeline INITIAL_PROCESSING..FINAL_GLOBAL_RELAX, 56 images, flat, two pose groups": ip_launches,
                "calibration_step": step_launches,
                "multi-device paths: sharded BA, dry run, lanes and joint solve over shards (no link)":
-                   multidev_launches},
+                   multidev_launches,
+               "bench twin (python -m opencalibration_tpu_torch.bench.bench, its own process): 16 calibration steps "
+               "and two 24-image runs with the orthomosaic": bench_launches,
+               f"bench_e2e.run_config({BENCH_IMAGES}) resumed from a mid-INITIAL_PROCESSING checkpoint to COMPLETE":
+                   resume_launches},
         **kernel,
     )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -356,6 +356,19 @@ def refresh_group_batch(batch: GroupBatch) -> GroupBatch:
 MAX_GROUPS_ENV = "OC_TPU_MAX_GROUPS_PER_DISPATCH"
 
 
+def num_lanes(num_groups: int, num_devices: int = 1, shared: bool = False) -> int:
+    """The lanes ``solve_group_batch`` solves ``num_groups`` groups in: on one
+    device the count bucketed to a power of two, on D > 1 devices padded to a
+    multiple of D. With ``shared``, those of ``solve_group_batch_shared``:
+    never bucketed, padded to a multiple of the ``min(D, G)`` shards it
+    spreads the groups over."""
+    if shared:
+        num_devices = min(num_devices, num_groups)
+    elif num_devices == 1:
+        return _bucket(num_groups, minimum=1)
+    return num_groups + (-num_groups) % num_devices
+
+
 def pad_lanes(batch: GroupBatch, lanes: int) -> GroupBatch:
     """The batch with ``lanes - num_groups`` copies of group 0 appended, every
     slot of a copy frozen: a frozen lane's step is exactly 0, so it stops
@@ -435,7 +448,7 @@ def solve_group_batch(
     mesh = GroupMesh([batch.free.device] if devices is None else list(devices))
     D = len(mesh)
     G = batch.num_groups
-    lanes = _bucket(G, minimum=1) if D == 1 else G + (-G) % D
+    lanes = num_lanes(G, D)
     dtype, dev = batch.params.quats.dtype, batch.free.device
     if init_lambda is None and batch.warm_lambda is not None:
         init_lambda = batch.warm_lambda[0]
@@ -681,7 +694,7 @@ def solve_group_batch_shared(
     devices = [batch.free.device] if devices is None else list(devices)
     D = min(len(devices), G)
     mesh = GroupMesh(devices[:D])
-    pad = (-G) % D
+    pad = num_lanes(G, D, shared=True) - G
 
     share_mesh = layout.V > 0 and layout.P == 0
     if share_mesh:

@@ -10,7 +10,9 @@ or with ``color=True`` binary PPM files, or with ``fmt="jpg"`` JPEG files
 (quality 95), all of which the port decodes without OpenCV, each with the JSON sidecar geotag the pipeline reads. A colour
 survey keeps the gray survey's luminance and tints it with a low-frequency
 chroma texture; an optional per-image exposure gain gives the orthomosaic's
-colour balance something to flatten.
+colour balance something to flatten. ``write_survey(..., fmt="jpg",
+jpeg_quality=BENCH_JPEG_QUALITY)`` with the other defaults is the survey the
+JAX package's bench_e2e.py writes (gray, 320 x 240, quality 98).
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ FOCAL = 400.0
 ALTITUDE = 60.0
 TEXTURE_SIZE = 512
 JPEG_QUALITY = 95
+BENCH_JPEG_QUALITY = 98  # the JAX package's bench survey (tests/synthetic_survey.py)
+RENDER_CHUNK = 64  # cameras rendered, encoded and dropped at a time
 
 
 def make_texture(seed=0, size=TEXTURE_SIZE):
@@ -208,7 +212,7 @@ def write_ppm(path, rgb: np.ndarray):
 
 def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W, height=IMG_H,
                  focal=FOCAL, focal_px_tag=None, texture=None, relief_amplitude=0.0, relief_wavelength=70.0,
-                 alt_pattern="row", color=False, gains=None, fmt="netpbm", device):
+                 alt_pattern="row", color=False, gains=None, fmt="netpbm", jpeg_quality=JPEG_QUALITY, device):
     """Render the survey and write ``IMG_<i>.pgm`` files with JSON sidecars
     (latitude, longitude, altitude, focal_length_px, camera make and model)
     into ``directory``. The texture spans the survey's footprint plus 60 m;
@@ -220,8 +224,10 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
     writes ``IMG_<i>.ppm`` instead: the same luminance tinted by
     ``make_chroma(seed)`` through ``colorize``, each image multiplied by its
     entry of ``gains`` (e.g. ``survey_gains``) where given. ``fmt="jpg"``
-    writes ``IMG_<i>.jpg`` through the port's JPEG encoder at quality 95
-    (one component for gray, 4:2:0 colour) instead of Netpbm. Returns (paths,
+    writes ``IMG_<i>.jpg`` through the port's JPEG encoder at
+    ``jpeg_quality`` (one component for gray, 4:2:0 colour) instead of
+    Netpbm. Cameras are rendered and written ``RENDER_CHUNK`` at a time, so a
+    survey of thousands of images is never in memory whole. Returns (paths,
     positions, quats)."""
     if fmt not in ("netpbm", "jpg"):
         raise ValueError(f"write_survey writes fmt 'netpbm' or 'jpg', not {fmt!r}")
@@ -232,28 +238,30 @@ def write_survey(directory, rows=2, cols=3, spacing=15.0, seed=0, *, width=IMG_W
     tex = color_texture(seed, texture) if color else make_texture(seed, size=texture)
     geo = GeoCoord()
     geo.set_origin(ORIGIN_LAT, ORIGIN_LON)
-    views = render_views(tex, positions, quats, width=width, height=height, focal=focal,
-                         ground_extent=extent, relief_amplitude=relief_amplitude,
-                         relief_wavelength=relief_wavelength, device=device)
-    views = views.cpu().numpy()
-    if color:
-        views = colorize(views[..., 0], views[..., 1:])
-        if gains is not None:
-            views = np.clip(views * np.asarray(gains, np.float32)[:, None, None, None], 0, 1)
     paths = []
-    for i, img in enumerate((views * 255).astype(np.uint8)):
-        if fmt == "jpg":
-            path = os.path.join(directory, f"IMG_{i:04d}.jpg")
-            with open(path, "wb") as f:
-                f.write(encode_jpeg(img[..., ::-1] if color else img, JPEG_QUALITY))
-        else:
-            path = os.path.join(directory, f"IMG_{i:04d}." + ("ppm" if color else "pgm"))
-            (write_ppm if color else write_pgm)(path, img)
-        lat, lon, _ = geo.to_wgs84(positions[i])
-        with open(os.path.splitext(path)[0] + ".json", "w") as f:
-            json.dump(dict(
-                latitude=float(lat), longitude=float(lon), altitude=float(positions[i][2]),
-                focal_length_px=float(focal if focal_px_tag is None else focal_px_tag), camera_make="Synthetic", camera_model="TestCam",
-            ), f)
-        paths.append(path)
+    for c0 in range(0, len(positions), RENDER_CHUNK):
+        views = render_views(tex, positions[c0:c0 + RENDER_CHUNK], quats[c0:c0 + RENDER_CHUNK], width=width,
+                             height=height, focal=focal, ground_extent=extent, relief_amplitude=relief_amplitude,
+                             relief_wavelength=relief_wavelength, device=device).cpu().numpy()
+        if color:
+            views = colorize(views[..., 0], views[..., 1:])
+            if gains is not None:
+                chunk_gains = np.asarray(gains, np.float32)[c0:c0 + len(views)]
+                views = np.clip(views * chunk_gains[:, None, None, None], 0, 1)
+        for i, img in enumerate((views * 255).astype(np.uint8), start=c0):
+            if fmt == "jpg":
+                path = os.path.join(directory, f"IMG_{i:04d}.jpg")
+                with open(path, "wb") as f:
+                    f.write(encode_jpeg(img[..., ::-1] if color else img, jpeg_quality))
+            else:
+                path = os.path.join(directory, f"IMG_{i:04d}." + ("ppm" if color else "pgm"))
+                (write_ppm if color else write_pgm)(path, img)
+            lat, lon, _ = geo.to_wgs84(positions[i])
+            with open(os.path.splitext(path)[0] + ".json", "w") as f:
+                json.dump(dict(
+                    latitude=float(lat), longitude=float(lon), altitude=float(positions[i][2]),
+                    focal_length_px=float(focal if focal_px_tag is None else focal_px_tag), camera_make="Synthetic",
+                    camera_model="TestCam",
+                ), f)
+            paths.append(path)
     return paths, positions, quats

@@ -31,7 +31,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import chip_smoke as CS  # noqa: E402
-from opencalibration_tpu_torch.pipeline import stages as ST  # noqa: E402
+from opencalibration_tpu_torch.bench import bench_e2e as BE  # noqa: E402
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState  # noqa: E402
 from opencalibration_tpu_torch.testing import survey as S  # noqa: E402
 
@@ -63,38 +63,27 @@ def _errors(p, paths, positions, quats):
     return ang, (herr if n_in else np.full(1, np.nan))
 
 
+class _CostLog(BE.SolveLog):
+    """Each relax solve's LM iterations and final cost per lane."""
+
+    def record(self, solve, batch, pre_solve, kw, out):
+        solve["cost"] = out[1].final_cost.reshape(-1).tolist()
+
+
 def drive(p, label, until, paths, positions, quats):
     """``iterate_once`` until the state ``until``, one line per pass."""
-    solves = []
-    names = ("solve_group_batch", "solve_group_batch_shared")
-    orig = {n: getattr(ST, n) for n in names}
-
-    def recording(name):
-        def solve(batch, *args, **kw):
-            out = orig[name](batch, *args, **kw)
-            info = out[1]
-            solves.append(list(zip(info.iterations.reshape(-1).tolist(), info.final_cost.reshape(-1).tolist())))
-            return out
-
-        return solve
-
-    for n in names:
-        setattr(ST, n, recording(n))
-    try:
+    with _CostLog() as log:
         while p.get_state() != until:
-            state, rc, n = p.get_state(), p.state_run_count(), len(solves)
+            state, rc, n = p.get_state(), p.state_run_count(), len(log.solves)
             t0 = time.perf_counter()
             p.iterate_once()
             ang, herr = _errors(p, paths, positions, quats)
             mesh = p.surfaces[0].mesh if p.surfaces else None
             size = f"{mesh.num_vertices} v / {mesh.num_triangles} t" if mesh is not None else "no mesh"
             print(f"[{label}] {state} {rc} (level {getattr(p, '_mesh_grid_level', None)}, {size}): "
-                  f"{time.perf_counter() - t0:.1f} s, LM/cost {solves[n:]}; focal "
+                  f"{time.perf_counter() - t0:.1f} s, LM/cost {[list(zip(x['lm'], x['cost'])) for x in log.solves[n:]]}; focal "
                   f"{float(p.model_store[1].focal_length_pixels):.4f} px, orientations median {np.median(ang):.4f} "
                   f"max {ang.max():.4f} deg, heights median {np.median(herr):.4f} max {herr.max():.4f} m", flush=True)
-    finally:
-        for n, fn in orig.items():
-            setattr(ST, n, fn)
 
 
 def main(argv=None):

@@ -20,6 +20,16 @@ it) and prints the same solves of each package, and how far the two
 packages' results are apart::
 
     python tools/torch_joint_at_scale.py replay chiprun_out/joint
+
+``passes OUT`` reads the same checkpoint on the CPU into the port's
+``Pipeline`` and the JAX package's (float64, as ``replay``) and runs all six
+passes of CAMERA_PARAMETER_RELAX in each (one intrinsics group, the
+pipeline's default below 150 images), printing after every pass the focal,
+principal point and radial terms of each package, their focal error against
+the truth and how far the two packages are apart (ROADMAP P4: is the focal
+that opening the radial tiers costs the port's or the reference's?)::
+
+    python tools/torch_joint_at_scale.py passes OUT
 """
 
 from __future__ import annotations
@@ -124,7 +134,10 @@ def capture(out, group_size):
     return 0
 
 
-def replay(out, group_size):
+def _load_both(out):
+    """The checkpoint ``OUT/ckpt`` loaded on the CPU into the port's
+    ``Pipeline`` and into the JAX package's (float64 on its CPU backend, as
+    its tests run), and the true focal."""
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
@@ -133,12 +146,15 @@ def replay(out, group_size):
     from opencalibration_tpu.pipeline.pipeline import Pipeline as JPipeline
     from opencalibration_tpu_torch.pipeline.pipeline import Pipeline
 
-    truth = np.load(os.path.join(out, "truth.npz"))
-    true_focal = float(truth["focal"])
     ckpt = os.path.join(out, "ckpt")
     port, ref = Pipeline(device="cpu"), JPipeline()
     if not (port.load_checkpoint(ckpt) and ref.load_checkpoint(ckpt)):
         raise RuntimeError("load_checkpoint failed")
+    return port, ref, float(np.load(os.path.join(out, "truth.npz"))["focal"])
+
+
+def replay(out, group_size):
+    port, ref, true_focal = _load_both(out)
     for size in (group_size, 150):
         t = _port_solve(port, size, "cpu")
         _line(f"port, CPU, groups of {size}", t, true_focal)
@@ -148,12 +164,61 @@ def replay(out, group_size):
     return 0
 
 
+def _model_values(model):
+    """(focal, principal point [2], radial [3]) of a camera model of either
+    package, as float64 numpy."""
+    def arr(x):
+        return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x, np.float64).reshape(-1)
+
+    return (float(arr(model.focal_length_pixels)[0]), arr(model.principal_point)[:2],
+            arr(model.radial_distortion)[:3])
+
+
+def passes(out):
+    from opencalibration_tpu_torch.pipeline.pipeline import PipelineState
+
+    port, ref, true_focal = _load_both(out)
+    state = PipelineState.CAMERA_PARAMETER_RELAX
+    if port.get_state() != state or ref.get_state() != state:
+        raise RuntimeError(f"the checkpoint is at {port.get_state()}, not at {state}")
+    (mid,) = sorted(port.model_store)
+    worst = 0.0
+    f, pp, k = _model_values(port.model_store[mid])
+    print(f"[entry] focal {f:.6f} px ({100 * (f / true_focal - 1):+.4f} %), principal {pp.tolist()}, "
+          f"radial {k.tolist()}", flush=True)
+    while port.get_state() == state:
+        rc = port.state_run_count()
+        if ref.get_state() != state or ref.state_run_count() != rc:
+            raise RuntimeError(f"the packages part at pass {rc}: {ref.get_state()} run {ref.state_run_count()}")
+        t0 = time.perf_counter()
+        port.iterate_once()
+        t1 = time.perf_counter()
+        ref.iterate_once()
+        t2 = time.perf_counter()
+        (fp, ppp, kp), (fj, ppj, kj) = (_model_values(port.model_store[mid]), _model_values(ref.model_store[mid]))
+        rel = abs(fp - fj) / abs(fj)
+        rad = float(np.max(np.abs(kp - kj)))
+        worst = max(worst, rel, float(np.max(np.abs(ppp - ppj))) / abs(fj),
+                    rad / max(float(np.max(np.abs(kj))), 1e-300) if rad else 0.0)
+        for name, f, pp, k in (("port", fp, ppp, kp), ("JAX package", fj, ppj, kj)):
+            print(f"[pass {rc}, {name}] focal {f:.10f} px ({100 * (f / true_focal - 1):+.4f} % against the true "
+                  f"{true_focal}), principal {pp.tolist()}, radial {k.tolist()}", flush=True)
+        print(f"[pass {rc}] port against JAX: focal {rel:.3e} relative, radial {rad:.3e}, principal "
+              f"{float(np.max(np.abs(ppp - ppj))):.3e} px; {t1 - t0:.1f} s / {t2 - t1:.1f} s (host clock)", flush=True)
+    print(f"[passes] largest relative difference over the six passes (focal; principal point over the focal; "
+          f"radial over its largest term): {worst:.3e}; both end at "
+          f"{port.get_state()} / {ref.get_state()}", flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("mode", choices=("capture", "replay"))
+    ap.add_argument("mode", choices=("capture", "replay", "passes"))
     ap.add_argument("out")
     ap.add_argument("--group-size", type=int, default=8, help="images per intrinsics group (phase 14: 8)")
     args = ap.parse_args(argv)
+    if args.mode == "passes":
+        return passes(args.out)
     return (capture if args.mode == "capture" else replay)(args.out, args.group_size)
 
 

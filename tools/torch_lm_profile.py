@@ -31,7 +31,6 @@ against the ground truth. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import copy
 import os
 import statistics
 import sys
@@ -44,7 +43,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import chip_smoke as CS  # noqa: E402
 from opencalibration_tpu_torch.parallel import group_solver as GS  # noqa: E402
-from opencalibration_tpu_torch.pipeline import stages as ST  # noqa: E402
 from opencalibration_tpu_torch.pipeline.pipeline import Pipeline, PipelineState  # noqa: E402
 from opencalibration_tpu_torch.relax import lm as LM  # noqa: E402
 from opencalibration_tpu_torch.testing import survey as S  # noqa: E402
@@ -101,14 +99,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     print(torch.cuda.get_device_name(0), flush=True)
     cfg = CS.MULTI
-    captured = []
-    orig = ST.solve_group_batch
-
-    def recording(batch, pre_solve, *a, **kw):
-        if not captured:
-            captured.append(copy.deepcopy(batch))
-        return orig(batch, pre_solve, *a, **kw)
-
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         paths, _, quats_gt = S.write_survey(d, cfg["rows"], cfg["cols"], spacing=CS.SPACING, width=cfg["width"],
@@ -127,15 +117,12 @@ def main(argv=None):
             p.iterate_once()
         print(f"[lm-profile] {len(paths)} images through INITIAL_PROCESSING in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        ST.solve_group_batch = recording
-        try:
+        with CS._SolveRecorder(keep_last=True) as rec:  # the pass makes one batched solve
             t0 = time.perf_counter()
             p.iterate_once()
             torch.cuda.synchronize()
             print(f"[lm-profile] first MESH_REFINEMENT pass {time.perf_counter() - t0:.2f} s", flush=True)
-        finally:
-            ST.solve_group_batch = orig
-    batch = captured[0]
+    batch = rec.last["batch"]
     builts = batch.builts
     route = LM.route(batch.layout.dim)
     print(f"[lm-profile] {len(builts)} groups, tangent dims {[b.layout.dim for b in builts]}, batch layout "
@@ -148,7 +135,7 @@ def main(argv=None):
     per_iteration("one group in one lane, lm.solve_batch",
                   lambda k: LM.solve_batch(one.params, one.blocks, one.layout, one.free, max_iterations=k, **off),
                   args.iterations)
-    G = GS._bucket(batch.num_groups, minimum=1)
+    G = GS.num_lanes(batch.num_groups)
     padded = GS.pad_lanes(batch, G)
     per_iteration(f"{batch.num_groups} groups in {G} lanes, lm.solve_batch",
                   lambda k: LM.solve_batch(padded.params, padded.blocks, padded.layout, padded.free,
