@@ -13,8 +13,9 @@ Phases, each printing its lines:
 3. the Hamming top-2 kernel against its plain PyTorch version on the card,
    bit for bit and twice, on the contract's edge cases, on a set 2 split over
    a cluster with ties across splits, and at the main paths' shapes
-   [42, 2048, 2048], [16, 1024, 1024] and the bench twin's calibration step
-   [42, 1024, 1024]; then at the three shapes the kernel,
+   [42, 2048, 2048], [16, 1024, 1024], the bench twin's calibration step
+   [42, 1024, 1024] and the bench_kernels twin's line [1, 4096, 4096] (every
+   column valid); then at the four shapes the kernel,
    ``match_descriptors``, the plain version and ``torch._int_mm`` (the +-1
    product alone, the library yardstick) timed with CUDA events, beside the
    kernel's bound;
@@ -177,16 +178,31 @@ Phases, each printing its lines:
    graph exactly once, the
    bounds of (a), at least one MESH_REFINEMENT pass of 3 pose groups or more
    in one batched solve, and per state its seconds, solves, groups, lanes,
-   tangent dimensions, routes and LM iterations.
+   tangent dimensions, routes and LM iterations;
+16. the remaining twins, each in a process of its own started after 15 (c)
+   and run beside 15 (a) (``TWIN_RUNS``; for the script's time, so their
+   seconds are not for comparison): ``bench_kernels`` (its five lines, every
+   roofline share and fraction in (0, 1.05], the kernel launched),
+   ``bench_lm_solvers 150,400,4096`` (both routes), ``bench_extract_profile
+   2`` (the stage table), ``bench_fed_ab`` (both modes, 42 pairs, the
+   repeatability in (0, 1.05]) and ``bench_overlap_ab`` at 104 images in
+   batches of 16 (seven batches, so the decode, link and relax of three
+   batches overlap from the third on), one process for the ``serial`` leg
+   and one for ``overlap``, each stopped after INITIAL_PROCESSING with its
+   checkpoint: both legs hold the same nodes and edges, and their poses are
+   compared (the gap printed). Each exits 0 and prints the card's line
+   first.
 
 The ``kernels`` line gives each kernel's launches on the main path, phase 9
 (INITIAL_PROCESSING through the camera parameters, the dense mesh and the
 ortho tail to COMPLETE), and on the paths of phases 12 (counted in the
 runner's own process), 8, 7 (INITIAL_PROCESSING to the end of
-FINAL_GLOBAL_RELAX), 5, 14 (the multi-device paths, where no link runs) and 15 (the bench twin, counted in its
-own process, and the resumed 104-image run), each taken with the counter set to 0
+FINAL_GLOBAL_RELAX), 5, 14 (the multi-device paths, where no link runs), 15 (the bench twin, counted in its
+own process, and the resumed 104-image run) and 16 (the bench_kernels twin's kernel line, counted in its own
+process), each taken with the counter set to 0
 just before the path and read just after it, and phase 3's times and bounds
-(``*_link`` at the link's shape, ``*_bench`` at the bench twin's). Run from the repository root with
+(``*_link`` at the link's shape, ``*_bench`` at the bench twin's, ``*_bench_kernels`` at the bench_kernels
+twin's). Run from the repository root with
 ``python3 chip_smoke.py`` (``--phases 2,9`` runs a subset and prints neither
 the ``kernels`` nor the ``ok`` line). Any
 failed check raises, so the exit code is non-zero; without a CUDA device it
@@ -211,6 +227,7 @@ import torch
 
 from opencalibration_tpu_torch.bench import bench as BB
 from opencalibration_tpu_torch.bench import bench_e2e as BE
+from opencalibration_tpu_torch.bench import bench_kernels as BK
 from opencalibration_tpu_torch.dense import dense_stereo as DS
 from opencalibration_tpu_torch.ops import features as F
 from opencalibration_tpu_torch.ops import hamming as H
@@ -369,9 +386,23 @@ BENCH_IMAGES, BENCH_CUT_BATCH, BENCH_CUT_ITERATES, BENCH_MIN_POSE_GROUPS = 104, 
 BENCH_GEOTIFFS = ("ortho.tif", "dsm.tif", "camera_ids.tif")
 KERNEL_SOURCE = "opencalibration_tpu_torch/csrc/hamming_top2.cu"
 KERNEL_REPLACES = "opencalibration_tpu/ops/hamming_pallas.py:43"
-# NVIDIA's published H100 SXM peaks (dense, at 700 W): int8 tensor cores and
-# device memory
-H100_INT8_OPS, H100_BYTES_PER_S = 1979e12, 3.35e12
+# phase 16: the twins each run in a process of its own (python -m
+# opencalibration_tpu_torch.bench.<twin> ...), beside phase 15's bench process;
+# every roofline share and fraction they print lies in (0, TWIN_FRACTION_MAX]
+TWIN_RUNS = {
+    "kernels": ["bench_kernels"],
+    "lm_solvers": ["bench_lm_solvers", "150,400,4096"],
+    "extract_profile": ["bench_extract_profile", "2"],
+    "fed_ab": ["bench_fed_ab"],
+    **{f"overlap_{leg}": ["bench_overlap_ab", str(BENCH_IMAGES), leg, "--stop-after", PipelineState.INITIAL_PROCESSING,
+                          "--batch-size", str(BENCH_CUT_BATCH)]
+       for leg in ("serial", "overlap")},
+}
+TWIN_FRACTION_MAX = 1.05
+TWIN_TIMEOUT_S = 600
+TWIN_TILT_DEG = 5.0  # bench_fed_ab's median tilt of the relaxed cameras from nadir
+TWIN_FED_PAIRS = 42  # bench.py's 24 images, each linked to its 3 nearest
+CHILDREN = []  # every process the script starts, stopped at its end
 
 
 def _sync():
@@ -448,17 +479,6 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _bound(pairs, n1, n2):
-    """The least time the card could take for one launch at [pairs, n1, n2]:
-    the larger of the int8 operations (a 512-deep multiply-add per distance)
-    over the int8 tensor-core peak and the bytes (packed words and valid2 in,
-    three int32 results out) over the memory rate. Returns (ms, bound_by)."""
-    ops = 2.0 * pairs * n1 * n2 * H.PADDED_BITS
-    nbytes = pairs * ((n1 + n2) * 4 * H.DESCRIPTOR_WORDS + n2 + 3 * 4 * n1)
-    t_ops, t_bytes = ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def _int_mm(p1, p2):
     """One ``torch._int_mm`` per pair on the unpacked +-1 operands (the
     similarity product only, no top-2), or None where it does not run."""
@@ -491,7 +511,7 @@ def _timed(p1, p2, v1, v2, label, smi):
     for which in ("plain", "kernel", "match", "library", "library", "match", "kernel", "plain"):
         if fns[which] is not None:
             runs[which].append(_cuda_ms(fns[which], 20))
-    bound_ms, bound_by = _bound(*p1.shape[:2], p2.shape[1])
+    bound_ms, bound_by = BK.hamming_top2_bound(*p1.shape[:2], p2.shape[1])
     ms = statistics.mean(runs["kernel"])
     library_ms = statistics.mean(runs["library"]) if runs["library"] else None
     print(f"[kernel] {label} on {smi}: kernel {runs['kernel']} ms, match_descriptors {runs['match']} ms, "
@@ -510,8 +530,12 @@ def phase_kernel(smi):
     split = ("set 2 split over a cluster, ties across splits",) + HC.split_ties_case(rng)
     bench = (f"bench twin's calibration step [42, {BB.MAX_FEATURES}, {BB.MAX_FEATURES}]",) + HC.main_path_case(
         rng, 42, BB.MAX_FEATURES)
+    n = BK.HAMMING_N
+    d1, d2 = BK.hamming_inputs(n, device="cpu")
+    every = torch.ones((1, n), dtype=torch.bool)
+    twin = (f"bench_kernels twin's line [1, {n}, {n}], every column valid", d1[None], d2[None], every, every)
     max_err = 0.0
-    for name, p1, p2, v1, v2 in HC.kernel_cases(rng) + [split, calib, link, bench]:
+    for name, p1, p2, v1, v2 in HC.kernel_cases(rng) + [split, calib, link, bench, twin]:
         p1, p2, v1, v2 = (t.to(dev).contiguous() for t in (p1, p2, v1, v2))
         top2 = hamming_cuda.hamming_top2(p1, p2, v2)
         again = hamming_cuda.hamming_top2(p1, p2, v2)
@@ -535,8 +559,10 @@ def phase_kernel(smi):
     link_out = _timed(*(t.to(dev).contiguous() for t in link[1:]), "[16, 1024, 1024]", smi)
     bench_out = _timed(*(t.to(dev).contiguous() for t in bench[1:]), f"[42, {BB.MAX_FEATURES}, {BB.MAX_FEATURES}]",
                        smi)
+    twin_out = _timed(*(t.to(dev).contiguous() for t in twin[1:]), f"[1, {n}, {n}]", smi)
     return dict(max_abs_err=max_err, **out, **{f"{k}_link": v for k, v in link_out.items()},
-                **{f"{k}_bench": v for k, v in bench_out.items()})
+                **{f"{k}_bench": v for k, v in bench_out.items()},
+                **{f"{k}_bench_kernels": v for k, v in twin_out.items()})
 
 
 def phase_cuda_vs_cpu():
@@ -2251,20 +2277,28 @@ def _bench_bounds(result, label):
         raise AssertionError(f"{label} never launched the Hamming kernel")
 
 
-def _bench_line(proc, out, err, t0):
+def _bench_line(run):
     """Wait for the bench's process of phase 15 (a) and check its line."""
-    proc.wait(timeout=900)
+    proc, out, err, t0 = run
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     took = time.perf_counter() - t0
     out.seek(0)
     err.seek(0)
     stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
     if proc.returncode != 0:
         raise AssertionError(f"the bench failed ({proc.returncode}): {stdout[-3000:]}{stderr[-3000:]}")
     lines = stdout.strip().splitlines()
     line = json.loads(lines[-1])
     print(f"[bench] (a) python -m opencalibration_tpu_torch.bench.bench (BENCH_SKIP_CPU_E2E=1): exit 0 in "
-          f"{took:.1f} s (process start included, beside (b) and (c)), {len(lines)} line(s) on its standard "
-          "output; the last:")
+          f"{took:.1f} s (process start included, beside (b), (c) and phase 16), {len(lines)} line(s) on its "
+          "standard output; the last:")
     print(f"[bench]   {lines[-1]}")
     if not line["value"] > 0 or line["e2e"]["cpu_node_1core"] is not None:
         raise AssertionError(f"the bench line is malformed: {line}")
@@ -2280,56 +2314,55 @@ def _bench_line(proc, out, err, t0):
     return sum(line["hamming_launches"].values())
 
 
-def phase_bench():
-    """The bench twins at survey scale: (a) the bench script in its own
-    process, started first and run beside (b) and (c) on the same card, for
-    the script's time (so neither's seconds are for comparison); (b) the
-    104-image survey in batches of 16 cut after five INITIAL_PROCESSING
-    iterates; (c) ``run_config`` resumed from that cut to COMPLETE. Returns
-    the Hamming kernel's launches of (a) (counted in its process) and of
-    (c)."""
-    env = dict(os.environ, BENCH_SKIP_CPU_E2E="1")
-    env.pop("BENCH_E2E_ORTHO", None)
-    env.pop("BENCH_E2E_CHECKPOINT", None)
-    saved = {k: os.environ.pop(k, None) for k in ("BENCH_E2E_ORTHO", "BENCH_E2E_CHECKPOINT")}
-    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
-        t_bench = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "opencalibration_tpu_torch.bench.bench"], stdout=out,
-                                stderr=err, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
-        try:
-            with tempfile.TemporaryDirectory() as ckpt:
-                t0 = time.perf_counter()
-                paths, _, _, gen_s = BE.bench_survey(BENCH_IMAGES, device="cuda")
-                p = BE.make_pipeline(BENCH_CUT_BATCH, device="cuda")
-                p.add(paths)
-                for _ in range(BENCH_CUT_ITERATES):
-                    p.iterate_once()
-                if p.get_state() != PipelineState.INITIAL_PROCESSING:
-                    raise AssertionError(f"the cut is not inside INITIAL_PROCESSING: {p.get_state()}")
-                if not p.save_checkpoint(ckpt):
-                    raise AssertionError("save_checkpoint failed")
-                BE._save_ip_sidecar(p, ckpt)
-                side = json.load(open(os.path.join(ckpt, "ip_sidecar.json")))
-                print(f"[bench] (b) {len(paths)} images (survey {gen_s:.2f} s) in batches of {BENCH_CUT_BATCH}, cut "
-                      f"after {BENCH_CUT_ITERATES} iterates of INITIAL_PROCESSING: {side['graph_nodes']} nodes, "
-                      f"{side['graph_edges']} edges, {len(side['pending'])} loaded and {len(side['linked'])} linked "
-                      f"(the linked batch and the nodes its edges reach) in flight, {len(side['remaining'])} queued; "
-                      f"{time.perf_counter() - t0:.1f} s")
-                del p
+def start_bench():
+    """Phase 15 (a): the bench script in its own process, started before (b)
+    and (c) and run beside them on the same card, for the script's time (so
+    neither's seconds are for comparison). Returns (process, stdout file,
+    stderr file, start time)."""
+    env = {k: v for k, v in os.environ.items() if k not in ("BENCH_E2E_ORTHO", "BENCH_E2E_CHECKPOINT")}
+    env["BENCH_SKIP_CPU_E2E"] = "1"
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "opencalibration_tpu_torch.bench.bench"], stdout=out,
+                            stderr=err, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    CHILDREN.append(proc)
+    return proc, out, err, time.perf_counter()
 
-                os.environ["BENCH_E2E_CHECKPOINT"] = ckpt
-                hamming_cuda.hamming_top2.launches = 0
-                result = BE.run_config(BENCH_IMAGES, batch_size=BENCH_CUT_BATCH)
-                resume_launches = hamming_cuda.hamming_top2.launches
-            bench_launches = _bench_line(proc, out, err, t_bench)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            for k, v in saved.items():
-                os.environ.pop(k, None)
-                if v is not None:
-                    os.environ[k] = v
+
+def phase_bench():
+    """Phase 15 (b) the 104-image survey in batches of 16 cut after five
+    INITIAL_PROCESSING iterates; (c) ``run_config`` resumed from that cut to
+    COMPLETE. Returns the Hamming kernel's launches of (c)."""
+    saved = {k: os.environ.pop(k, None) for k in ("BENCH_E2E_ORTHO", "BENCH_E2E_CHECKPOINT")}
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            paths, _, _, gen_s = BE.bench_survey(BENCH_IMAGES, device="cuda")
+            p = BE.make_pipeline(BENCH_CUT_BATCH, device="cuda")
+            p.add(paths)
+            for _ in range(BENCH_CUT_ITERATES):
+                p.iterate_once()
+            if p.get_state() != PipelineState.INITIAL_PROCESSING:
+                raise AssertionError(f"the cut is not inside INITIAL_PROCESSING: {p.get_state()}")
+            if not p.save_checkpoint(ckpt):
+                raise AssertionError("save_checkpoint failed")
+            BE._save_ip_sidecar(p, ckpt)
+            side = json.load(open(os.path.join(ckpt, "ip_sidecar.json")))
+            print(f"[bench] (b) {len(paths)} images (survey {gen_s:.2f} s) in batches of {BENCH_CUT_BATCH}, cut "
+                  f"after {BENCH_CUT_ITERATES} iterates of INITIAL_PROCESSING: {side['graph_nodes']} nodes, "
+                  f"{side['graph_edges']} edges, {len(side['pending'])} loaded and {len(side['linked'])} linked "
+                  f"(the linked batch and the nodes its edges reach) in flight, {len(side['remaining'])} queued; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del p
+
+            os.environ["BENCH_E2E_CHECKPOINT"] = ckpt
+            hamming_cuda.hamming_top2.launches = 0
+            result = BE.run_config(BENCH_IMAGES, batch_size=BENCH_CUT_BATCH)
+            resume_launches = hamming_cuda.hamming_top2.launches
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
     print(f"[bench] (c) run_config({BENCH_IMAGES}, batch_size={BENCH_CUT_BATCH}) with BENCH_E2E_CHECKPOINT: resumed "
           f"at {result['resumed_at']}, {result['resume_kept_nodes']} nodes kept by the roll-back; at the end "
           f"{result['n_nodes']} nodes, {result['n_survey_paths_in_graph']} of the survey's paths; peak "
@@ -2355,7 +2388,140 @@ def phase_bench():
         raise AssertionError(f"no MESH_REFINEMENT solve of {BENCH_MIN_POSE_GROUPS} pose groups or more: {mesh}")
     if resume_launches == 0:
         raise AssertionError("the resumed run never launched the Hamming kernel")
-    return bench_launches, resume_launches
+    return resume_launches
+
+
+def start_twins(directory):
+    """Phase 16's processes, all started at once: the five remaining twins
+    (``TWIN_RUNS``; bench_overlap_ab one process a leg, each saving its
+    checkpoint to ``directory/<leg>`` at the end of INITIAL_PROCESSING).
+    Returns {label: (process, stdout file, stderr file, start time)}."""
+    BE.bench_survey(BENCH_IMAGES, device="cuda")  # written once, before the two legs read it
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for label, (twin, *args) in TWIN_RUNS.items():
+        env = {k: v for k, v in os.environ.items() if k not in ("BENCH_E2E_ORTHO", "BENCH_E2E_CHECKPOINT")}
+        if twin == "bench_overlap_ab":
+            env["BENCH_E2E_CHECKPOINT"] = os.path.join(directory, label)
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([sys.executable, "-m", f"opencalibration_tpu_torch.bench.{twin}", *args], stdout=out,
+                                stderr=err, text=True, cwd=root, env=env)
+        CHILDREN.append(proc)
+        runs[label] = (proc, out, err, time.perf_counter())
+    print(f"[twins] started {len(runs)} processes: {', '.join(runs)}")
+    return runs
+
+
+def _twin_lines(label, run, smi):
+    """Wait for one twin's process: exit 0, the device line first. Returns
+    the lines after it."""
+    proc, out, err, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, TWIN_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"twin {label} failed ({proc.returncode}): {stdout[-3000:]}{stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
+    print(f"[twins] {label}: exit 0, {time.perf_counter() - t0:.1f} s from its start (beside the others)")
+    for line in lines:
+        print(f"[twins]   {line}")
+    if lines[0] != smi:
+        raise AssertionError(f"twin {label}'s first line is not the device: {lines[0]!r}")
+    return lines[1:]
+
+
+def _fraction(label, name, value):
+    if not 0.0 < value <= TWIN_FRACTION_MAX:
+        raise AssertionError(f"twin {label}: {name} {value} outside (0, {TWIN_FRACTION_MAX}]")
+
+
+def _check_kernels_twin(lines):
+    """The five lines of bench_kernels; returns the kernel line's launches."""
+    recs = [json.loads(line) for line in lines]
+    if len(recs) != len(BK.BENCHES) or [r["peak"] for r in recs] != ["fp32"] * 4 + ["int8"]:
+        raise AssertionError(f"bench_kernels printed {[r.get('kernel') for r in recs]}")
+    for r in recs:
+        for key in ("compute_fraction", "hbm_fraction", "roofline_share"):
+            _fraction("kernels", f"{r['kernel']}: {key}", r[key])
+    top2 = recs[-1]
+    if top2["function"] != "hamming_cuda.hamming_top2" or top2["launches"] < 1:
+        raise AssertionError(f"the kernel line did not launch the kernel: {top2}")
+    return top2["launches"]
+
+
+def _check_lm_twin(lines):
+    if lines[0] != "C=150 V=400 NB=4096 T=858" or any("FAILED" in line for line in lines):
+        raise AssertionError(f"bench_lm_solvers: {lines}")
+    solvers = [line.split(":")[0].strip() for line in lines[1:]]
+    if solvers != ["cholesky", "cg"]:
+        raise AssertionError(f"bench_lm_solvers ran {solvers}")
+
+
+def _check_profile_twin(lines):
+    if lines[-7] != "batch=2 1200x1600 on cuda":
+        raise AssertionError(f"bench_extract_profile's table: {lines[-7:]}")
+    for line in lines[-6:]:  # <stage> <ms> ms <images/s> img/s
+        if not float(line.split()[-4]) > 0:
+            raise AssertionError(f"bench_extract_profile: {line}")
+
+
+def _check_fed_twin(lines):
+    recs = [json.loads(line) for line in lines]
+    if [r["diffusion"] for r in recs] != ["gaussian", "fed"]:
+        raise AssertionError(f"bench_fed_ab printed {recs}")
+    for r in recs:
+        _fraction("fed_ab", f"{r['diffusion']}: repeatability_3px", r["repeatability_3px"])
+        if not (0 < r["pairs_with_pose"] <= r["n_pairs"] == TWIN_FED_PAIRS and r["extract_s"] > 0
+                and r["median_tilt_err_deg"] <= TWIN_TILT_DEG):
+            raise AssertionError(f"bench_fed_ab: {r}")
+
+
+def _check_overlap_twin(legs, directory):
+    """Both legs end INITIAL_PROCESSING with the same nodes and edges; their
+    poses are compared and the gap printed (bound PARITY_DEG and 1e-6 m)."""
+    loaded = {}
+    for leg, lines in legs.items():
+        (rec,) = [json.loads(line) for line in lines]
+        if not (rec["leg"] == leg and rec["overlap_io"] is (leg != "serial")
+                and rec["final_state"] == PipelineState.MESH_REFINEMENT and rec["n_nodes"] == BENCH_IMAGES):
+            raise AssertionError(f"bench_overlap_ab's {leg} leg: {rec}")
+        p = Pipeline(batch_size=BENCH_CUT_BATCH, device="cuda")
+        if not p.load_checkpoint(os.path.join(directory, f"overlap_{leg}")):
+            raise AssertionError(f"the {leg} leg's checkpoint does not load")
+        loaded[leg] = p
+    a, b = (_by_path(loaded[leg]) for leg in ("serial", "overlap"))
+    ea, eb = (set(_edge_paths(loaded[leg])) for leg in ("serial", "overlap"))
+    if a.keys() != b.keys() or ea != eb:
+        raise AssertionError(f"the overlap legs' graphs differ: {len(a)} / {len(b)} nodes, {len(ea)} / {len(eb)} "
+                             f"edges, {len(ea ^ eb)} not in both")
+    pos = max(float(np.max(np.abs(np.asarray(a[k].position) - np.asarray(b[k].position)))) for k in a)
+    ang = float(np.max(_angles_deg(np.stack([a[k].orientation for k in a]), np.stack([b[k].orientation for k in a]))))
+    same = all(np.array_equal(a[k].position, b[k].position) and np.array_equal(a[k].orientation, b[k].orientation)
+               for k in a)
+    print(f"[twins] overlap A/B at {BENCH_IMAGES} images: the same {len(a)} nodes and {len(ea)} edges; poses "
+          f"{'bit for bit equal' if same else f'apart by up to {pos:.3e} m and {ang:.3e} deg'}")
+    if pos > 1e-6 or ang > PARITY_DEG:
+        raise AssertionError(f"the overlap legs' poses part by {pos} m, {ang} deg")
+
+
+def phase_twins(runs, directory, smi):
+    """Phase 16: wait for the twins' processes and check their lines.
+    Returns the Hamming kernel's launches of the bench_kernels line."""
+    lines = {label: _twin_lines(label, run, smi) for label, run in runs.items()}
+    launches = _check_kernels_twin(lines["kernels"])
+    _check_lm_twin(lines["lm_solvers"])
+    _check_profile_twin(lines["extract_profile"])
+    _check_fed_twin(lines["fed_ab"])
+    _check_overlap_twin({leg: lines[f"overlap_{leg}"] for leg in ("serial", "overlap")}, directory)
+    return launches
 
 
 def main(argv=()):
@@ -2432,10 +2598,19 @@ def main(argv=()):
     if want(14):
         multidev_launches = phase_multi_device(multi_last, calib_entry)
     lap("phase 14")
-    bench_launches = resume_launches = None
-    if want(15):
-        bench_launches, resume_launches = phase_bench()
-    lap("phase 15")
+    bench_launches = resume_launches = twin_launches = None
+    with tempfile.TemporaryDirectory() as twin_dir:
+        bench = start_bench() if want(15) else None
+        if want(15):
+            resume_launches = phase_bench()
+        # phase 16's processes run beside 15 (a)'s, which outlives (c)
+        twins = start_twins(twin_dir) if want(16) else None
+        if bench is not None:
+            bench_launches = _bench_line(bench)
+        lap("phase 15")
+        if twins is not None:
+            twin_launches = phase_twins(twins, twin_dir, smi)
+    lap("phase 16")
     _assert_standalone("end")
     print(f"[end] {time.perf_counter() - t_start:.1f} s")
     if FAILURES:
@@ -2457,12 +2632,24 @@ def main(argv=()):
                "bench twin (python -m opencalibration_tpu_torch.bench.bench, its own process): 16 calibration steps "
                "and two 24-image runs with the orthomosaic": bench_launches,
                f"bench_e2e.run_config({BENCH_IMAGES}) resumed from a mid-INITIAL_PROCESSING checkpoint to COMPLETE":
-                   resume_launches},
+                   resume_launches,
+               f"bench_kernels twin, hamming top-2 at [1, {BK.HAMMING_N}, {BK.HAMMING_N}] (its own process)":
+                   twin_launches},
         **kernel,
     )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 
 
+def _stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        sys.exit(main(sys.argv[1:]))
+    finally:
+        _stop_children()
