@@ -686,7 +686,8 @@ CODEC_KEYS = ("jpeg: decode", "jpeg: encode")  # io/jpeg.py's scopes
 
 
 def _codec_counts():
-    return {k: (performance.get_timer_count(k), performance.get_timer_total(k)) for k in CODEC_KEYS}
+    finished = performance.spans()
+    return {k: (sum(s.name == k for s in finished), performance.get_timer_total(k)) for k in CODEC_KEYS}
 
 
 def _codec_line(label, where, before=None):

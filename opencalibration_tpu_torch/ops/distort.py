@@ -4,7 +4,10 @@ Functions broadcast over leading dimensions: a pixel [..., 2] goes with a
 camera whose leaves broadcast against ``...`` (a single camera's 0-d focal
 broadcasts against anything). Inverse problems are fixed-iteration Newton
 loops, as in the reference, so shapes and control flow are static; the
-FORWARD <-> INVERSE model conversions are fixed-iteration 5-parameter LM fits.
+FORWARD <-> INVERSE model conversions are fixed-iteration 5-parameter LM fits,
+counted under the performance event ``model fits``; with the performance
+counters on, a fit of a model that the current job already fitted in the
+same direction, dtype and device is also counted under ``model fit repeats``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 
 from opencalibration_tpu_torch.ops.quaternion import quat_rotate, quat_rotate_inverse
 from opencalibration_tpu_torch.types.camera import FORWARD, INVERSE, CameraModel
+from opencalibration_tpu_torch.utils import performance
 from opencalibration_tpu_torch.utils.device import full_fp32
 
 MIN_PROJECTION_Z = 1e-3
@@ -170,6 +174,20 @@ def _with_distortion(model: CameraModel, params) -> CameraModel:
     return model.replace(radial_distortion=params[:3], tangential_distortion=params[3:])
 
 
+def _count_fit(direction: str, model: CameraModel):
+    """Count one model fit, and whether it repeats one of the current job's
+    (bit-equal leaves: focal, principal point, distortion, size). The leaves
+    are read to the host only while the counters are on."""
+    performance.add_event_count("model fits", 1.0)
+    if performance.counters_enabled():
+        leaves = [model.focal_length_pixels, model.principal_point, model.radial_distortion,
+                  model.tangential_distortion, model.pixels_cols, model.pixels_rows]
+        values = torch.cat([x.detach().reshape(-1).to("cpu", torch.float64) for x in leaves]).numpy().tobytes()
+        key = ("model fit", direction, model.dtype, model.focal_length_pixels.device, values)
+        if performance.repeat_in_job(key):
+            performance.add_event_count("model fit repeats", 1.0)
+
+
 def convert_to_inverse(model: CameraModel) -> CameraModel:
     """An INVERSE model matching a single FORWARD model over a pixel grid:
     the 5 distortion parameters fitted on 3-d ray residuals, on the model's
@@ -184,6 +202,7 @@ def convert_to_inverse(model: CameraModel) -> CameraModel:
     def resid(params):
         return (image_to_3d(repro, _with_distortion(base, params)) - rays).reshape(-1)
 
+    _count_fit(INVERSE, model)
     p = _lm_fit_5param(resid, torch.zeros(5, dtype=model.dtype, device=pixels.device))
     return _with_distortion(base, p)
 
@@ -201,6 +220,7 @@ def convert_to_forward(model: CameraModel) -> CameraModel:
     def resid(params):
         return (image_from_3d(rays, _with_distortion(base, params)) - pixels).reshape(-1) / scale
 
+    _count_fit(FORWARD, model)
     p = _lm_fit_5param(resid, torch.zeros(5, dtype=model.dtype, device=pixels.device))
     return _with_distortion(base, p)
 

@@ -52,6 +52,7 @@ from opencalibration_tpu_torch.relax.blocks import BlockSpec
 from opencalibration_tpu_torch.relax.problem_builder import BuiltProblem, _bucket
 from opencalibration_tpu_torch.relax.tangent import FIELDS, RelaxParams, TangentLayout
 from opencalibration_tpu_torch.utils.device import full_fp32
+from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, add_event_count
 
 DOWN_QUAT = (0.0, 1.0, 0.0, 0.0)
 
@@ -521,15 +522,19 @@ class _SharedShard:
         self.cost = cost0
         self.done = ~torch.isfinite(cost0)
 
-    def reduce(self):
-        """Assemble the groups' damped normal equations, eliminate the local
-        slots and return the shard's share of the shared system, packed as
-        [S | rhs | diag(H_ss)]: [ns, ns + 2]."""
-        nl, ns = self.n_local, self.n_shared
+    def linearize(self):
+        """Assemble the groups' normal equations."""
         Hg = [lm.normal_equations(_group(self.p, g), self.group_blocks[g], self.layout, self.free_join[g])
               for g in range(self.G)]
-        H = torch.stack([h for h, _ in Hg])  # [Gk, T, T]
-        g_ = torch.stack([v for _, v in Hg])  # [Gk, T]
+        self.H = torch.stack([h for h, _ in Hg])  # [Gk, T, T]
+        self.g = torch.stack([v for _, v in Hg])  # [Gk, T]
+
+    def reduce(self):
+        """Damp the groups' normal equations, eliminate the local slots and
+        return the shard's share of the shared system, packed as
+        [S | rhs | diag(H_ss)]: [ns, ns + 2]."""
+        nl, ns = self.n_local, self.n_shared
+        H, g_ = self.H, self.g
         diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
 
         H_ll = H[:, :nl, :nl] + torch.diag_embed(self.lam_l[:, None] * diag[:, :nl] + self.frozen_l)
@@ -543,7 +548,6 @@ class _SharedShard:
         H_ll_s = H_ll * s_l[:, :, None] * s_l[:, None, :]
         rhs_l = torch.cat([H_ls, g_l[..., None]], dim=-1)
         X = s_l[:, :, None] * torch.linalg.solve_ex(H_ll_s, s_l[:, :, None] * rhs_l)[0]
-        self.H, self.g = H, g_
         self.Hinv_Hls, self.Hinv_gl = X[..., :ns], X[..., ns]
 
         S = torch.sum(H_ss - torch.einsum("gls,glt->gst", H_ls, self.Hinv_Hls), dim=0)
@@ -552,9 +556,8 @@ class _SharedShard:
         return torch.cat([S, rhs[:, None], dss[:, None]], dim=1)
 
     def step(self, packed):
-        """Solve the reduced shared system, back-substitute the local steps
-        and take the trial step. Returns the shard's [cost, predicted
-        decrease] partials and its largest step entry."""
+        """Solve the reduced shared system and back-substitute the local
+        steps: the joint step [Gk, T]."""
         ns = self.n_shared
         S, rhs = packed[:, :ns], packed[:, ns]
         dss = torch.clamp(packed[:, ns + 1], 1e-10, 1e32)
@@ -563,7 +566,11 @@ class _SharedShard:
 
         d_l = -(self.Hinv_gl + torch.einsum("gls,s->gl", self.Hinv_Hls, d_s))
         d_l = torch.where(self.free_l, d_l, 0.0)
-        delta = torch.cat([d_l, d_s.expand(self.G, ns)], dim=1)
+        return torch.cat([d_l, d_s.expand(self.G, ns)], dim=1)
+
+    def trial(self, delta):
+        """Take the trial step. Returns the shard's [cost, predicted
+        decrease] partials and its largest step entry."""
         self.p_new = _stack_params([self.layout.retract(_group(self.p, g), delta[g]) for g in range(self.G)])
         self.per_new = self.cost_per(self.p_new)
         # gain ratio of the JOINT step: the predicted decrease of the
@@ -648,20 +655,29 @@ def _solve_shared(params, blocks, free, layout, max_iterations, n_local=None, in
     # the shared tail is one set of unknowns: free where any group frees it
     free_s = mesh.any([f[:, n_local:].any(dim=0) for f in frees])
     tolerances = (parameter_tolerance, function_tolerance)
-    shards = [_SharedShard(p, b, f, lam, lam_s, fs, layout, n_local, tolerances)
-              for p, b, f, lam, fs in zip(mesh.split(params), mesh.split(blocks), frees, mesh.split(lam_l), free_s)]
-    for s, c in zip(shards, mesh.psum([torch.sum(s.per) for s in shards])):
-        s.start(c)
-    cost0 = shards[0].cost
-    it = 0
-    while it < max_iterations and not bool(shards[0].done):  # one host sync per iteration
-        packed = mesh.psum([s.reduce() for s in shards])
-        partials = [s.step(pk) for s, pk in zip(shards, packed)]
-        sums = mesh.psum([c for c, _ in partials])
-        steps = mesh.pmax([m for _, m in partials])
-        for s, sm, st in zip(shards, sums, steps):
-            s.update(sm[0], sm[1], st)
-        it += 1
+    with PerformanceMeasure("lm: solve"):  # the LM's spans and counts: see relax/lm.py
+        shards = [_SharedShard(p, b, f, lam, lam_s, fs, layout, n_local, tolerances)
+                  for p, b, f, lam, fs in zip(mesh.split(params), mesh.split(blocks), frees, mesh.split(lam_l),
+                                              free_s)]
+        for s, c in zip(shards, mesh.psum([torch.sum(s.per) for s in shards])):
+            s.start(c)
+        cost0 = shards[0].cost
+        it = 0
+        while it < max_iterations and not lm._stop_read(shards[0].done):  # one host sync per iteration
+            add_event_count("lm steps", 1.0)
+            with PerformanceMeasure("lm: linearize"):
+                for s in shards:
+                    s.linearize()
+            with PerformanceMeasure("lm: linear solve"):
+                packed = mesh.psum([s.reduce() for s in shards])
+                deltas = [s.step(pk) for s, pk in zip(shards, packed)]
+            with PerformanceMeasure("lm: evaluate"):
+                partials = [s.trial(d) for s, d in zip(shards, deltas)]
+                sums = mesh.psum([c for c, _ in partials])
+                steps = mesh.pmax([m for _, m in partials])
+                for s, sm, st in zip(shards, sums, steps):
+                    s.update(sm[0], sm[1], st)
+            it += 1
 
     s0 = shards[0]
     info = lm.SolveInfo(initial_cost=cost0.to(dev), final_cost=s0.cost.to(dev),

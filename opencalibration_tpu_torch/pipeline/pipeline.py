@@ -48,7 +48,7 @@ from opencalibration_tpu_torch.surface.refine import merge_surface_models, refin
 from opencalibration_tpu_torch.types.camera import CameraModel
 from opencalibration_tpu_torch.types.graph import MeasurementGraph, SurfaceModel
 from opencalibration_tpu_torch.utils.device import resolve_device
-from opencalibration_tpu_torch.utils.performance import PerformanceMeasure
+from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, begin_job
 
 
 class PipelineState:
@@ -182,6 +182,7 @@ class Pipeline:
         self.thumbnail_mosaic = None
         self._ortho_job = None
         self.dense_stats: dict = {}  # DENSIFY_MESH's counts and matcher time
+        begin_job()  # spans and model-fit repeats from here on belong to this pipeline's job
 
     # --- public API -------------------------------------------------------
     def add(self, paths: Sequence[str]):

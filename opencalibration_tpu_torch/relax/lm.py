@@ -20,6 +20,17 @@ device per iteration; the CG loop evaluates its stop test on the device,
 freezes its state once the test says stop, and reads the flag only every
 ``_CG_CHECK_EVERY`` iterations, so its result is the reference's
 while-loop's.
+
+Every LM loop (``solve``, ``solve_batch_shards``, and the shared-intrinsics
+loop of ``parallel/group_solver.py``) records the same performance spans:
+``lm: solve`` around the call, and in each step ``lm: linearize`` (the
+quadratics or normal equations, gradient and diagonal), ``lm: linear solve``
+(PCG or the dense solve, with the preconditioner) and ``lm: evaluate``
+(retract, new cost, the step's decision); ``lm: stop read`` around each host
+read of ``done``. It counts ``lm steps`` (one per loop turn, however many
+lanes or shards run in it) and ``lm host reads`` (each deliberate read of a
+device flag by the host, the CG checks included; implicit syncs are not
+counted).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from torch.func import jacfwd, vmap
 from opencalibration_tpu_torch.relax.blocks import BlockSpec
 from opencalibration_tpu_torch.relax.tangent import FIELDS, RelaxParams, TangentLayout
 from opencalibration_tpu_torch.utils.device import full_fp32, lane_invariant_linalg
+from opencalibration_tpu_torch.utils.performance import PerformanceMeasure, add_event_count
 
 DEFAULT_MAX_ITERATIONS = 100
 # ``linear_solver="auto"`` takes the matrix-free CG path from this tangent
@@ -286,13 +298,26 @@ def _bj_build(quads, layout, damp, diag, order: SegmentOrder):
     return apply
 
 
-def _pcg(matvec, b, pre_apply, rtol, max_iters):
+def _host_read(flags):
+    """The host's copy of device flags (a bool, or a list of them), counted
+    as one of the LM's host reads."""
+    add_event_count("lm host reads", 1.0)
+    return flags.tolist()
+
+
+def _stop_read(done):
+    """The host read of an LM loop's ``done`` flag (or flags)."""
+    with PerformanceMeasure("lm: stop read"):
+        return _host_read(done)
+
+
+def _pcg(matvec, b, pre_apply, rtol, max_iters, read=bool):
     """Preconditioned CG from x0 = 0 (pre_apply: r -> M^-1 r). Returns
     (x, r_final).
 
     Every iteration evaluates the reference's loop condition on the device
     and keeps the old state where it is false, so the state is frozen from
-    the first stop on; the host reads the condition only every
+    the first stop on; the host reads the condition (``read``) only every
     ``_CG_CHECK_EVERY`` iterations to leave the loop early."""
     tol2 = (rtol * rtol) * torch.clamp_min(torch.sum(b * b), 1e-38)
     z0 = pre_apply(b)
@@ -301,7 +326,7 @@ def _pcg(matvec, b, pre_apply, rtol, max_iters):
     done = torch.sum(b * b) <= 0.0  # zero right-hand side
     for k in range(max_iters):
         active = (~done) & (torch.sum(r * r) > tol2)
-        if k and k % _CG_CHECK_EVERY == 0 and not bool(active):
+        if k and k % _CG_CHECK_EVERY == 0 and not read(active):
             break
         Ap = matvec(p)
         pAp = torch.sum(p * Ap)
@@ -388,7 +413,7 @@ def solve(
         linear_solver = route(layout.dim)
     if linear_solver not in ("cholesky", "cg") or cg_precond not in ("jacobi", "block"):
         raise ValueError(f"unknown linear solver {linear_solver!r} / preconditioner {cg_precond!r}")
-    with full_fp32():
+    with full_fp32(), PerformanceMeasure("lm: solve"):
         return _solve_impl(
             params, tuple(blocks), layout, free_mask, max_iterations, init_lambda,
             parameter_tolerance, function_tolerance, linear_solver, cg_precond,
@@ -412,42 +437,48 @@ def _solve_impl(params, blocks, layout, free_mask, max_iterations, init_lambda,
     p, lam, nu, cost = params, scalar(init_lambda), scalar(2.0), cost0
     done = ~torch.isfinite(cost0)
     it = 0
-    while it < max_iterations and not bool(done):  # one host sync per iteration
+    while it < max_iterations and not _stop_read(done):  # one host sync per iteration
+        add_event_count("lm steps", 1.0)
         if linear_solver == "cg":
-            quads = _quads_all(p, blocks, free)
-            g = _gn_grad(quads, blocks, order)
-            diag = torch.clamp(_gn_diag(quads, blocks, order), 1e-10, 1e32)
-            # A = H + lam diag(H) + I_frozen, applied matrix-free
-            damp = lam * diag + frozen
+            with PerformanceMeasure("lm: linearize"):
+                quads = _quads_all(p, blocks, free)
+                g = _gn_grad(quads, blocks, order)
+                diag = torch.clamp(_gn_diag(quads, blocks, order), 1e-10, 1e32)
+            with PerformanceMeasure("lm: linear solve"):
+                # A = H + lam diag(H) + I_frozen, applied matrix-free
+                damp = lam * diag + frozen
 
-            def matvec(v):
-                return _gn_matvec(v, quads, blocks, order) + damp * v
+                def matvec(v):
+                    return _gn_matvec(v, quads, blocks, order) + damp * v
 
-            if cg_precond == "block":
-                pre_apply = _bj_build(quads, layout, damp, diag, bj_order)
-            else:
-                pre_diag = diag + damp
-                pre_apply = lambda r: r / pre_diag  # noqa: E731
-            delta, r_cg = _pcg(matvec, -g, pre_apply, CG_RTOL, CG_MAX_ITERS)
-            delta = torch.where(free, delta, 0.0)
-            # inexact step: A delta = -g - r  =>  pred = 0.5 (delta.r - delta.g)
-            pred = 0.5 * (torch.sum(delta * r_cg) - torch.sum(delta * g))
+                if cg_precond == "block":
+                    pre_apply = _bj_build(quads, layout, damp, diag, bj_order)
+                else:
+                    pre_diag = diag + damp
+                    pre_apply = lambda r: r / pre_diag  # noqa: E731
+                delta, r_cg = _pcg(matvec, -g, pre_apply, CG_RTOL, CG_MAX_ITERS, read=_host_read)
+                delta = torch.where(free, delta, 0.0)
+                # inexact step: A delta = -g - r  =>  pred = 0.5 (delta.r - delta.g)
+                pred = 0.5 * (torch.sum(delta * r_cg) - torch.sum(delta * g))
         else:
-            H, g = normal_equations(p, blocks, layout, free)
-            diag = torch.clamp(torch.diagonal(H), 1e-10, 1e32)
-            # frozen slots: unit diagonal keeps the system SPD, zero gradient
-            A = H + lam * torch.diag(diag) + torch.diag(frozen)
-            delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
-            # gain ratio: actual decrease over the damped model's prediction,
-            # (H + lam D) delta = -g  =>  pred = 0.5 delta^T (lam D delta - g)
-            pred = 0.5 * torch.sum(delta * (lam * diag * delta - g))
+            with PerformanceMeasure("lm: linearize"):
+                H, g = normal_equations(p, blocks, layout, free)
+                diag = torch.clamp(torch.diagonal(H), 1e-10, 1e32)
+            with PerformanceMeasure("lm: linear solve"):
+                # frozen slots: unit diagonal keeps the system SPD, zero gradient
+                A = H + lam * torch.diag(diag) + torch.diag(frozen)
+                delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
+                # gain ratio: actual decrease over the damped model's prediction,
+                # (H + lam D) delta = -g  =>  pred = 0.5 delta^T (lam D delta - g)
+                pred = 0.5 * torch.sum(delta * (lam * diag * delta - g))
 
-        p_new = layout.retract(p, delta)
-        new_cost = total_cost(p_new, blocks)
-        accept, lam, nu, done = _lm_update(cost, new_cost, pred, lam, nu, torch.max(torch.abs(delta)),
-                                           parameter_tolerance, function_tolerance)
-        p = p.where(accept, p_new)
-        cost = torch.where(accept, new_cost, cost)
+        with PerformanceMeasure("lm: evaluate"):
+            p_new = layout.retract(p, delta)
+            new_cost = total_cost(p_new, blocks)
+            accept, lam, nu, done = _lm_update(cost, new_cost, pred, lam, nu, torch.max(torch.abs(delta)),
+                                               parameter_tolerance, function_tolerance)
+            p = p.where(accept, p_new)
+            cost = torch.where(accept, new_cost, cost)
         it += 1
 
     return p, SolveInfo(
@@ -542,7 +573,7 @@ def _lane_pcg(matvec, b, pre_apply, rtol, max_iters, live):
     done = (bb <= 0.0) | ~live
     for k in range(max_iters):
         active = (~done) & (torch.sum(r * r, dim=-1) > tol2)
-        if k and k % _CG_CHECK_EVERY == 0 and not bool(active.any()):
+        if k and k % _CG_CHECK_EVERY == 0 and not _host_read(active.any()):
             break
         Ap = matvec(p)
         pAp = torch.sum(p * Ap, dim=-1)
@@ -610,7 +641,7 @@ def solve_batch_shards(
         linear_solver = route(layout.dim)
     if linear_solver not in ("cholesky", "cg"):
         raise ValueError(f"unknown linear solver {linear_solver!r}")
-    with full_fp32(), lane_invariant_linalg():
+    with full_fp32(), lane_invariant_linalg(), PerformanceMeasure("lm: solve"):
         return run_lockstep([
             _batch_iterations(params, tuple(blocks), layout, free, max_iterations, lam0, parameter_tolerance,
                               function_tolerance, linear_solver)
@@ -631,7 +662,7 @@ def run_lockstep(runs: Sequence) -> list:
     """Drive LM generators (``_batch_iterations``) in lockstep and return
     their results in order. Each generator yields a 0-d ``done`` flag on its
     device before every iteration; all live flags are read in one host read
-    (one flag: ``bool``, the single solve's one sync), and each generator is
+    (one flag alone: the single solve's one sync), and each generator is
     told whether to stop or to run its next iteration."""
     results = [None] * len(runs)
     live = {}
@@ -644,10 +675,12 @@ def run_lockstep(runs: Sequence) -> list:
     while live:
         flags = list(live.values())
         if len(flags) == 1:
-            stops = [bool(flags[0])]
+            stops = [_stop_read(flags[0])]
         else:
             dev0 = flags[0].device
-            stops = torch.stack([f.to(dev0) for f in flags]).tolist()
+            stops = _stop_read(torch.stack([f.to(dev0) for f in flags]))
+        if not all(stops):
+            add_event_count("lm steps", 1.0)  # one lockstep turn
         nxt = {}
         for k, stop in zip(list(live), stops):
             finished, value = _advance(runs[k], stop)
@@ -695,39 +728,44 @@ def _batch_iterations(params, blocks, layout, free_mask, max_iterations, init_la
             break
         live = ~done
         if linear_solver == "cg":
-            quads = _lane_call(lambda q, b, fr: _quads_all(q, b, fr), p, blocks, free)
-            g = _lane_scatter([Jtr for _, Jtr in quads], order, G)
-            diag = torch.clamp(_lane_diag(quads, blocks, order, G), 1e-10, 1e32)
-            damp = lam[:, None] * diag + frozen
+            with PerformanceMeasure("lm: linearize"):
+                quads = _lane_call(lambda q, b, fr: _quads_all(q, b, fr), p, blocks, free)
+                g = _lane_scatter([Jtr for _, Jtr in quads], order, G)
+                diag = torch.clamp(_lane_diag(quads, blocks, order, G), 1e-10, 1e32)
+            with PerformanceMeasure("lm: linear solve"):
+                damp = lam[:, None] * diag + frozen
 
-            def matvec(v):
-                return _lane_matvec(v, quads, blocks, order) + damp * v
+                def matvec(v):
+                    return _lane_matvec(v, quads, blocks, order) + damp * v
 
-            pre_diag = diag + damp
-            delta, r_cg = _lane_pcg(matvec, -g, lambda r: r / pre_diag, CG_RTOL, CG_MAX_ITERS, live)
-            delta = torch.where(free, delta, 0.0)
-            pred = 0.5 * (torch.sum(delta * r_cg, dim=-1) - torch.sum(delta * g, dim=-1))
+                pre_diag = diag + damp
+                delta, r_cg = _lane_pcg(matvec, -g, lambda r: r / pre_diag, CG_RTOL, CG_MAX_ITERS, live)
+                delta = torch.where(free, delta, 0.0)
+                pred = 0.5 * (torch.sum(delta * r_cg, dim=-1) - torch.sum(delta * g, dim=-1))
         else:
-            H, g = _lane_call(lambda q, b, fr: normal_equations(q, b, layout, fr), p, blocks, free)
-            diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
-            A = H + torch.diag_embed(lam[:, None] * diag) + torch.diag_embed(frozen)
-            delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
-            pred = 0.5 * torch.sum(delta * (lam[:, None] * diag * delta - g), dim=-1)
+            with PerformanceMeasure("lm: linearize"):
+                H, g = _lane_call(lambda q, b, fr: normal_equations(q, b, layout, fr), p, blocks, free)
+                diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-10, 1e32)
+            with PerformanceMeasure("lm: linear solve"):
+                A = H + torch.diag_embed(lam[:, None] * diag) + torch.diag_embed(frozen)
+                delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
+                pred = 0.5 * torch.sum(delta * (lam[:, None] * diag * delta - g), dim=-1)
 
-        p_new = retract(p, delta)
-        new_cost = lane_cost(p_new)
-        accept, lam_next, nu_next, done_next = _lm_update(
-            cost, new_cost, pred, lam, nu, torch.amax(torch.abs(delta), dim=-1), parameter_tolerance,
-            function_tolerance)
+        with PerformanceMeasure("lm: evaluate"):
+            p_new = retract(p, delta)
+            new_cost = lane_cost(p_new)
+            accept, lam_next, nu_next, done_next = _lm_update(
+                cost, new_cost, pred, lam, nu, torch.amax(torch.abs(delta), dim=-1), parameter_tolerance,
+                function_tolerance)
 
-        # a lane that was done before this iteration holds its state
-        step = live & accept
-        p = _params_where(step, p_new, p)
-        cost = torch.where(step, new_cost, cost)
-        lam = torch.where(live, lam_next, lam)
-        nu = torch.where(live, nu_next, nu)
-        done = torch.where(live, done_next, done)
-        iterations = iterations + live.to(torch.int32)
+            # a lane that was done before this iteration holds its state
+            step = live & accept
+            p = _params_where(step, p_new, p)
+            cost = torch.where(step, new_cost, cost)
+            lam = torch.where(live, lam_next, lam)
+            nu = torch.where(live, nu_next, nu)
+            done = torch.where(live, done_next, done)
+            iterations = iterations + live.to(torch.int32)
         it += 1
 
     return p, SolveInfo(initial_cost=cost0, final_cost=cost, iterations=iterations, final_lambda=lam)

@@ -58,6 +58,8 @@ def _counts(fn):
         torch.cuda.synchronize()
     kernels = launches = syncs = 0
     for e in prof.events():
+        if e.is_user_annotation:  # the program's spans, on the host and over their kernels
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
         elif e.name in _LAUNCH:
