@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import torch
 
+from opencalibration_tpu_torch.utils.device import device_constant
+
 
 def _norm(x, keepdim=False):
     return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
 
 
 def quat_identity(dtype=torch.float32, *, device):
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return device_constant([1.0, 0.0, 0.0, 0.0], dtype, device)
 
 
 def quat_normalize(q, eps=1e-30):
@@ -25,7 +27,7 @@ def quat_normalize(q, eps=1e-30):
 
 
 def quat_conjugate(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * device_constant([1.0, -1.0, -1.0, -1.0], q.dtype, q.device)
 
 
 def quat_inverse(q):

@@ -37,6 +37,7 @@ from opencalibration_tpu_torch.ops.quaternion import (
 )
 from opencalibration_tpu_torch.relax.tangent import RelaxParams, TangentLayout
 from opencalibration_tpu_torch.types.camera import FORWARD, INVERSE, CameraModel
+from opencalibration_tpu_torch.utils.device import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +78,7 @@ def _decomposed_rotation_resid(delta, d, params: RelaxParams):
     )
     # a tensor, not a Python float: under jacfwd a scalar branch of
     # torch.where gives a float64 tangent
-    pi = torch.tensor(math.pi, dtype=r0.dtype, device=r0.device)
+    pi = device_constant(math.pi, r0.dtype, r0.device)
     r0 = torch.where(has_t, r0, pi)
     r1 = torch.where(has_t, r1, pi)
     rot2_1 = quat_multiply(q1, quat_conjugate(q2))
@@ -123,7 +124,7 @@ def decomposed_rotation_block(
 
 def _downwards_resid(delta, d, params: RelaxParams):
     q = quat_normalize(quat_boxplus(params.quats[d["cam_i"]], delta[0:3]))
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
+    up = device_constant([0.0, 0.0, 1.0], q.dtype, q.device)
     ang = angle_between_unit_vectors(quat_rotate(q, up), -up)
     return (d["w"] * ang)[None]
 

@@ -31,11 +31,27 @@ read of ``done``. It counts ``lm steps`` (one per loop turn, however many
 lanes or shards run in it) and ``lm host reads`` (each deliberate read of a
 device flag by the host, the CG checks included; implicit syncs are not
 counted).
+
+On the card, ``solve`` replays the step's device work from CUDA graphs
+(``GraphCache``): per problem structure, one graph of the entry cost, one of
+the linearisation and one of the evaluation, over static buffers that hold
+the parameters, the block leaves, the free mask and the damping state. A
+structure is captured on its second sighting in the process (the first runs
+eagerly) and kept, at most ``GRAPH_CACHE_SIZE`` of them, least recently used
+out first; the linear solve and the read of ``done`` stay eager. A replay
+runs the same kernels as the eager step, so the result is the same. It counts
+``lm graph captures`` (one a captured structure) and ``lm graph steps`` (one
+a step run from replays). On the CPU ``solve`` is the eager loop alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
+import warnings
+from collections import OrderedDict
 from typing import Sequence
 
 import torch
@@ -54,6 +70,7 @@ CG_RTOL = 1e-2  # forcing tolerance of the inexact CG step
 CG_MAX_ITERS = 100
 _ASSEMBLE_CHUNK = 2048  # instances per one-hot assembly chunk
 _CG_CHECK_EVERY = 8  # CG iterations per host read of the stop flag
+GRAPH_CACHE_SIZE = 8  # problem structures whose step graphs are kept
 
 
 def _huber_rho_and_weight(s, delta):
@@ -166,8 +183,11 @@ def _segment_order(ids, num_segments: int) -> SegmentOrder:
 
 
 def _segment_sum(values, order: SegmentOrder):
-    """Segment sums of flat ``values`` in the order's fixed order."""
-    return torch.segment_reduce(values[order.perm], "sum", lengths=order.lengths)
+    """Segment sums of flat ``values`` in the order's fixed order. The
+    lengths come from ``_segment_order`` and sum to the values' count, so the
+    reduction skips its checks (``unsafe``), which read the device from the
+    host and would stop a CUDA graph's capture."""
+    return torch.segment_reduce(values[order.perm], "sum", lengths=order.lengths, unsafe=True)
 
 
 def _flat_slot_order(blocks, T) -> SegmentOrder:
@@ -420,71 +440,287 @@ def solve(
         )
 
 
+def _linearize(p, blocks, layout, free, order, linear_solver):
+    """The step's linearisation at ``p``: (quads, g, diag) on the CG route,
+    (H, g, diag) on the Cholesky route, with diag = diag(H) clamped."""
+    if linear_solver == "cg":
+        quads = _quads_all(p, blocks, free)
+        g = _gn_grad(quads, blocks, order)
+        return quads, g, torch.clamp(_gn_diag(quads, blocks, order), 1e-10, 1e32)
+    H, g = normal_equations(p, blocks, layout, free)
+    return H, g, torch.clamp(torch.diagonal(H), 1e-10, 1e32)
+
+
+def _damped_step(lin, lam, free, frozen, blocks, layout, order, linear_solver, cg_precond, bj_order):
+    """The damped Gauss-Newton step from ``_linearize``'s output and the
+    damped model's predicted decrease: (delta, pred)."""
+    if linear_solver == "cg":
+        quads, g, diag = lin
+        # A = H + lam diag(H) + I_frozen, applied matrix-free
+        damp = lam * diag + frozen
+
+        def matvec(v):
+            return _gn_matvec(v, quads, blocks, order) + damp * v
+
+        if cg_precond == "block":
+            pre_apply = _bj_build(quads, layout, damp, diag, bj_order)
+        else:
+            pre_diag = diag + damp
+            pre_apply = lambda r: r / pre_diag  # noqa: E731
+        delta, r_cg = _pcg(matvec, -g, pre_apply, CG_RTOL, CG_MAX_ITERS, read=_host_read)
+        delta = torch.where(free, delta, 0.0)
+        # inexact step: A delta = -g - r  =>  pred = 0.5 (delta.r - delta.g)
+        return delta, 0.5 * (torch.sum(delta * r_cg) - torch.sum(delta * g))
+    H, g, diag = lin
+    # frozen slots: unit diagonal keeps the system SPD, zero gradient
+    A = H + lam * torch.diag(diag) + torch.diag(frozen)
+    delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
+    # gain ratio: actual decrease over the damped model's prediction,
+    # (H + lam D) delta = -g  =>  pred = 0.5 delta^T (lam D delta - g)
+    return delta, 0.5 * torch.sum(delta * (lam * diag * delta - g))
+
+
+def _evaluate(p, blocks, layout, delta, pred, cost, lam, nu, tolerances):
+    """Retract, the new cost and the step's decision: (p, cost, lam, nu,
+    done) after the step."""
+    p_new = layout.retract(p, delta)
+    new_cost = total_cost(p_new, blocks)
+    accept, lam, nu, done = _lm_update(cost, new_cost, pred, lam, nu, torch.max(torch.abs(delta)), *tolerances)
+    return p.where(accept, p_new), torch.where(accept, new_cost, cost), lam, nu, done
+
+
 def _solve_impl(params, blocks, layout, free_mask, max_iterations, init_lambda,
                 parameter_tolerance, function_tolerance, linear_solver, cg_precond):
     dtype, dev = params.quats.dtype, params.quats.device
     free = torch.as_tensor(free_mask, device=dev)
     frozen = (~free).to(dtype)
+    tolerances = (parameter_tolerance, function_tolerance)
 
     def scalar(x):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    if linear_solver == "cg":
-        order = _flat_slot_order(blocks, layout.dim)
-        bj_order = _bj_segment_order(blocks, layout) if cg_precond == "block" else None
+    order = _flat_slot_order(blocks, layout.dim) if linear_solver == "cg" else None
+    bj_order = _bj_segment_order(blocks, layout) if cg_precond == "block" and order is not None else None
 
-    cost0 = total_cost(params, blocks)
-    p, lam, nu, cost = params, scalar(init_lambda), scalar(2.0), cost0
-    done = ~torch.isfinite(cost0)
-    it = 0
-    while it < max_iterations and not _stop_read(done):  # one host sync per iteration
-        add_event_count("lm steps", 1.0)
-        if linear_solver == "cg":
-            with PerformanceMeasure("lm: linearize"):
-                quads = _quads_all(p, blocks, free)
-                g = _gn_grad(quads, blocks, order)
-                diag = torch.clamp(_gn_diag(quads, blocks, order), 1e-10, 1e32)
-            with PerformanceMeasure("lm: linear solve"):
-                # A = H + lam diag(H) + I_frozen, applied matrix-free
-                damp = lam * diag + frozen
-
-                def matvec(v):
-                    return _gn_matvec(v, quads, blocks, order) + damp * v
-
-                if cg_precond == "block":
-                    pre_apply = _bj_build(quads, layout, damp, diag, bj_order)
-                else:
-                    pre_diag = diag + damp
-                    pre_apply = lambda r: r / pre_diag  # noqa: E731
-                delta, r_cg = _pcg(matvec, -g, pre_apply, CG_RTOL, CG_MAX_ITERS, read=_host_read)
-                delta = torch.where(free, delta, 0.0)
-                # inexact step: A delta = -g - r  =>  pred = 0.5 (delta.r - delta.g)
-                pred = 0.5 * (torch.sum(delta * r_cg) - torch.sum(delta * g))
+    with _step_graphs(params, blocks, layout, free, order, linear_solver, tolerances) as graphs:
+        if graphs is None:
+            cost0 = total_cost(params, blocks)
+            p, lam, nu, cost = params, scalar(init_lambda), scalar(2.0), cost0
+            done = ~torch.isfinite(cost0)
         else:
+            cost0, done = graphs.start(params, blocks, free, order, scalar(init_lambda))
+            lam = graphs.lam  # updated in place by every evaluation
+        it = 0
+        while it < max_iterations and not _stop_read(done):  # one host sync per iteration
+            add_event_count("lm steps", 1.0)
             with PerformanceMeasure("lm: linearize"):
-                H, g = normal_equations(p, blocks, layout, free)
-                diag = torch.clamp(torch.diagonal(H), 1e-10, 1e32)
+                if graphs is None:
+                    lin = _linearize(p, blocks, layout, free, order, linear_solver)
+                else:
+                    lin = graphs.linearize()
             with PerformanceMeasure("lm: linear solve"):
-                # frozen slots: unit diagonal keeps the system SPD, zero gradient
-                A = H + lam * torch.diag(diag) + torch.diag(frozen)
-                delta = torch.where(free, -_jacobi_solve(A, g), 0.0)
-                # gain ratio: actual decrease over the damped model's prediction,
-                # (H + lam D) delta = -g  =>  pred = 0.5 delta^T (lam D delta - g)
-                pred = 0.5 * torch.sum(delta * (lam * diag * delta - g))
-
-        with PerformanceMeasure("lm: evaluate"):
-            p_new = layout.retract(p, delta)
-            new_cost = total_cost(p_new, blocks)
-            accept, lam, nu, done = _lm_update(cost, new_cost, pred, lam, nu, torch.max(torch.abs(delta)),
-                                               parameter_tolerance, function_tolerance)
-            p = p.where(accept, p_new)
-            cost = torch.where(accept, new_cost, cost)
-        it += 1
+                delta, pred = _damped_step(lin, lam, free, frozen, blocks, layout, order, linear_solver,
+                                           cg_precond, bj_order)
+            with PerformanceMeasure("lm: evaluate"):
+                if graphs is None:
+                    p, cost, lam, nu, done = _evaluate(p, blocks, layout, delta, pred, cost, lam, nu, tolerances)
+                else:
+                    done = graphs.evaluate(delta, pred)
+                    add_event_count("lm graph steps", 1.0)
+            it += 1
+        if graphs is not None:
+            p, cost, lam = graphs.result()
 
     return p, SolveInfo(
         initial_cost=cost0, final_cost=cost, iterations=torch.tensor(it, dtype=torch.int32),
         final_lambda=lam,
     )
+
+
+# ---------------------------------------------------------------------------
+# The single solve's step as CUDA graphs, cached by problem structure.
+# ---------------------------------------------------------------------------
+
+
+def graph_key(params: RelaxParams, blocks, layout: TangentLayout, free, linear_solver: str, tolerances):
+    """Everything a capture of ``solve``'s step bakes in: the route, the
+    layout, the dtype and device, each family's residual function, robust
+    scale, residual count and leaf shapes and dtypes, and the tolerances the
+    step's decision reads. Problems with equal keys share graphs; all else
+    reaches the graphs through their buffers."""
+
+    def leaf(x):
+        return tuple(x.shape), x.dtype
+
+    return (
+        linear_solver, (layout.C, layout.V, layout.P, layout.M, layout.dim), params.quats.dtype,
+        params.quats.device, tuple(leaf(getattr(params, f)) for f in FIELDS), leaf(free),
+        tuple((b.resid_one, b.huber_delta, b.num_residuals, leaf(b.slots), leaf(b.weight),
+               tuple((k, *leaf(v)) for k, v in b.data.items())) for b in blocks),
+        tuple(tolerances),
+    )
+
+
+class _StepGraphs:
+    """One problem structure's LM step over static buffers: the parameters,
+    the block leaves, the free mask, the CG route's slot order, and the
+    cost, damping, step and predicted decrease. ``capture`` turns the
+    buffers' three step functions into replays: the entry cost, the
+    linearisation, and the evaluation, which writes the step's outcome back
+    into the buffers."""
+
+    def __init__(self, params, blocks, layout, free, order, linear_solver, tolerances, capture):
+        dtype, dev = params.quats.dtype, params.quats.device
+        self.p = RelaxParams(**{f: getattr(params, f).clone() for f in FIELDS})
+        self.blocks = tuple(
+            dataclasses.replace(b, slots=b.slots.clone(), weight=b.weight.clone(),
+                                data={k: v.clone() for k, v in b.data.items()})
+            for b in blocks)
+        self.free = free.clone()
+        self.order = None if order is None else SegmentOrder(order.perm.clone(), order.lengths.clone())
+        self.cost, self.lam, self.nu, self.pred = (torch.zeros((), dtype=dtype, device=dev) for _ in range(4))
+        self.delta = torch.zeros(layout.dim, dtype=dtype, device=dev)
+        self.layout, self.linear_solver, self.tolerances = layout, linear_solver, tolerances
+        # ``linearize()`` replays the linearisation: (quads or H, g, diag)
+        self._start, self.linearize, self._evaluate = capture(
+            [self._start_fn, self._linearize_fn, self._evaluate_fn], dev)
+
+    def _start_fn(self):
+        self.cost.copy_(total_cost(self.p, self.blocks))
+        return ~torch.isfinite(self.cost)
+
+    def _linearize_fn(self):
+        return _linearize(self.p, self.blocks, self.layout, self.free, self.order, self.linear_solver)
+
+    def _evaluate_fn(self):
+        p, cost, lam, nu, done = _evaluate(self.p, self.blocks, self.layout, self.delta, self.pred, self.cost,
+                                           self.lam, self.nu, self.tolerances)
+        for f in FIELDS:
+            getattr(self.p, f).copy_(getattr(p, f))
+        for buf, value in ((self.cost, cost), (self.lam, lam), (self.nu, nu)):
+            buf.copy_(value)
+        return done
+
+    def start(self, params, blocks, free, order, lam):
+        """Load a problem of this structure and run its entry cost: (the
+        cost, the ``done`` flag)."""
+        for f in FIELDS:
+            getattr(self.p, f).copy_(getattr(params, f))
+        for mine, b in zip(self.blocks, blocks):
+            mine.slots.copy_(b.slots)
+            mine.weight.copy_(b.weight)
+            for k, v in mine.data.items():
+                v.copy_(b.data[k])
+        self.free.copy_(free)
+        if order is not None:
+            self.order.perm.copy_(order.perm)
+            self.order.lengths.copy_(order.lengths)
+        self.lam.copy_(lam)
+        self.nu.fill_(2.0)
+        done = self._start()
+        return self.cost.clone(), done
+
+    def evaluate(self, delta, pred):
+        """The step's evaluation: the ``done`` flag after it."""
+        self.delta.copy_(delta)
+        self.pred.copy_(pred)
+        return self._evaluate()
+
+    def result(self):
+        """(params, cost, damping) now, as tensors of their own."""
+        return RelaxParams(**{f: getattr(self.p, f).clone() for f in FIELDS}), self.cost.clone(), self.lam.clone()
+
+
+def _replay(graph, out):
+    graph.replay()
+    return out
+
+
+def cuda_graphs(fns, device):
+    """Replays of ``fns`` (functions of no arguments over static buffers on
+    ``device``) as CUDA graphs, by PyTorch's recipe: one warm-up run of each
+    on a side stream, then each captured, all in one memory pool. A replay
+    returns the tensors its function returned at capture, refreshed. Other
+    threads' CUDA work may go on meanwhile (``thread_local`` capture)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        replays = []
+        for fn in fns:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                out = fn()
+            replays.append(functools.partial(_replay, graph, out))
+    return replays
+
+
+class GraphCache:
+    """Step graphs by ``graph_key``, for the life of the process. A key's
+    first sighting gets None (the caller runs eagerly), its second builds
+    the graphs, later ones reuse them. At most ``capacity`` keys hold graphs
+    (least recently used out first) and ``4 * capacity`` keys are remembered
+    as seen once. ``capture`` is what ``_StepGraphs`` captures with, on
+    devices of type ``device_type``."""
+
+    def __init__(self, capacity: int, capture=cuda_graphs, device_type: str = "cuda"):
+        self.capacity, self.capture, self.device_type = capacity, capture, device_type
+        self._seen = OrderedDict()
+        self._graphs = OrderedDict()
+
+    def lookup(self, key, build):
+        if key in self._graphs:
+            self._graphs.move_to_end(key)
+            return self._graphs[key]
+        if key not in self._seen:
+            self._seen[key] = None
+            if len(self._seen) > 4 * self.capacity:
+                self._seen.popitem(last=False)
+            return None
+        del self._seen[key]
+        self._graphs[key] = graphs = build()
+        if len(self._graphs) > self.capacity:
+            self._graphs.popitem(last=False)
+        return graphs
+
+    def __len__(self):
+        return len(self._graphs)
+
+
+_GRAPHS = GraphCache(GRAPH_CACHE_SIZE)
+_GRAPH_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _step_graphs(params, blocks, layout, free, order, linear_solver, tolerances):
+    """The step graphs of this problem's structure from the process's cache,
+    held for the solve; None where the step runs eagerly: off the card, on
+    the structure's first sighting, where its capture failed, or while
+    another thread replays (the buffers are one solve's at a time)."""
+    if params.quats.device.type != _GRAPHS.device_type or not _GRAPH_LOCK.acquire(blocking=False):
+        yield None
+        return
+    try:
+        key = graph_key(params, blocks, layout, free, linear_solver, tolerances)
+        yield _GRAPHS.lookup(key, lambda: _capture(params, blocks, layout, free, order, linear_solver, tolerances))
+    finally:
+        _GRAPH_LOCK.release()
+
+
+def _capture(params, blocks, layout, free, order, linear_solver, tolerances):
+    """The step graphs of this problem's structure, or None where a capture
+    fails (the structure then solves eagerly until it leaves the cache)."""
+    try:
+        graphs = _StepGraphs(params, blocks, layout, free, order, linear_solver, tolerances, _GRAPHS.capture)
+    except RuntimeError as e:
+        warnings.warn(f"LM step not captured as CUDA graphs, solving eagerly: {e}")
+        return None
+    add_event_count("lm graph captures", 1.0)
+    return graphs
 
 
 # ---------------------------------------------------------------------------

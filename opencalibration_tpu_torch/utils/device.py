@@ -60,3 +60,18 @@ def lane_invariant_linalg():
         yield
     finally:
         torch.backends.cuda.preferred_linalg_library(saved)
+
+
+def device_constant(values, dtype, device):
+    """``torch.tensor(values, dtype=dtype, device=device)`` for a float or a
+    list of floats, made by fills on the device. ``torch.tensor`` copies from
+    the host: on the card that makes the host wait, and it is not allowed
+    while a CUDA graph is captured. The values are the same to the bit."""
+    if not isinstance(values, (list, tuple)):
+        return torch.full((), values, dtype=dtype, device=device)
+    common = max(set(values), key=values.count)
+    out = torch.full((len(values),), common, dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        if v != common:
+            out[i].fill_(v)
+    return out
