@@ -14,6 +14,8 @@ the survey's truth.
   (``orientation_deg``: the largest, ``orientation_deg_median``), and how far
   its quaternion's norm is from 1 (``quat_norm_gap``): a rotation's
   quaternion is a unit one, and float64 keeps it so to rounding.
+* ``edges`` and ``relaxed``: how many edges the graph holds and how many
+  images were relaxed, for the record; on a fixed survey they repeat.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ def compare(answers: dict, config: dict, traffic: dict, seed: int) -> dict:
     strong = errs[counts >= traffic["min_inliers"]]
     out["edge_deg"] = float(strong.max()) if len(strong) else np.inf
     out["edge_deg_median"] = float(np.median(errs)) if len(errs) else np.inf
+    out["edges"] = float(len(edges))
+    out["relaxed"] = float(len(relaxed))
 
     linked = {(e["a"], e["b"]) for e in edges} | {(e["b"], e["a"]) for e in edges}
     rel = set(relaxed)

@@ -8,9 +8,11 @@ Mercator inverse of opencalibration_tpu_torch/geo/geo_coord.py at the same
 commit. It imports nothing of the program, so the yardstick does not move
 when the program changes. What it adds: the texture made on the device from
 a ``torch.Generator``, flight lines in serpentine order with separate
-along-track and across-track spacings, one flight height, a geotag origin at
-the first image of the flight, placed anywhere on the globe, and JPEG
-through the benchmark's own encoder.
+along-track and across-track spacings, one flight height, trigger positions
+off the plan by a drawn amount (``position_jitter_m``, none by default), a
+geotag origin at the first image of the flight, placed anywhere on the
+globe, JPEG through the benchmark's own encoder, and a cache of a whole
+survey's JPEGs inside the checkout (``cached_survey``).
 
 World frame: x east, y north, z up, metres; the ground is z = 0, or the relief
 ``relief_height``. Cameras look down (the quaternion ``[0, 1, 0, 0]`` turned by
@@ -23,15 +25,19 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import math
 import os
+import shutil
+import tempfile
 from typing import List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ocbench.jpeg import SOURCE as JPEG_SOURCE
 from ocbench.jpeg import encode_jpeg
 
 ORIGIN_LAT, ORIGIN_LON = 47.4, 8.5
@@ -59,6 +65,7 @@ class SurveySpec:
     focal_tag_scale: float = 1.0
     gain_spread: float = 0.0
     yaw_jitter_rad: float = 0.15
+    position_jitter_m: float = 0.0
 
     @classmethod
     def from_config(cls, cfg: dict) -> "SurveySpec":
@@ -100,17 +107,24 @@ def _quat_mul(a, b):
 def flight_plan(spec: SurveySpec, seed: int, lines=None, per_line=None):
     """Every image of the survey in flight order: line by line across track,
     each line flown the other way from the last (serpentine). ``lines`` and
-    ``per_line`` (ranges) pick a block of it, flown in the same order.
-    Returns (positions [N, 3], quats [N, 4], index [N, 2])."""
+    ``per_line`` (ranges) pick a block of it, flown in the same order. Each
+    trigger position is off the plan by up to ``position_jitter_m`` east and
+    north (uniform), so that no two distances between neighbours tie: on an
+    exact grid the geotags' rounding, which moves with their origin, decides
+    which of several equally near images are a camera's nearest. Returns
+    (positions [N, 3], quats [N, 4], index [N, 2])."""
     rng = np.random.default_rng(seed)
     yaws = rng.uniform(-spec.yaw_jitter_rad, spec.yaw_jitter_rad, size=(spec.lines, spec.per_line))
+    off = np.zeros((spec.lines, spec.per_line, 2))
+    if spec.position_jitter_m:
+        off = rng.uniform(-spec.position_jitter_m, spec.position_jitter_m, size=off.shape)
     down = np.array([0.0, 1.0, 0.0, 0.0])
     positions, quats, index = [], [], []
     for line in (range(spec.lines) if lines is None else lines):
         along = range(spec.per_line) if per_line is None else per_line
         for j in (along if line % 2 == 0 else reversed(along)):
-            positions.append([MARGIN_M + line * spec.across_track_m, MARGIN_M + j * spec.along_track_m,
-                              spec.altitude_m])
+            positions.append([MARGIN_M + line * spec.across_track_m + off[line, j, 0],
+                              MARGIN_M + j * spec.along_track_m + off[line, j, 1], spec.altitude_m])
             half = 0.5 * yaws[line, j]
             quats.append(_quat_mul(np.array([math.cos(half), 0.0, 0.0, math.sin(half)]), down))
             index.append((line, j))
@@ -298,6 +312,54 @@ class TransverseMercator:
 
 # --- the survey on disk ----------------------------------------------------------
 
+def plan_survey(directory: str, spec: SurveySpec, seed: int, lines=None, per_line=None) -> Survey:
+    """The survey's truth drawn from ``seed``, its images ``IMG_<k>.jpg`` in
+    flight order in ``directory``; nothing is written."""
+    positions, quats, index = flight_plan(spec, seed, lines, per_line)
+    gains = np.random.default_rng(seed + 104729).uniform(
+        1.0 - spec.gain_spread, 1.0 + spec.gain_spread, size=(spec.lines, spec.per_line))[index[:, 0], index[:, 1]]
+    paths = [os.path.join(directory, f"IMG_{k:04d}.jpg") for k in range(len(positions))]
+    return Survey(spec=spec, paths=paths, positions=positions, quats=quats, gains=gains, index=index)
+
+
+def _sidecar(survey: Survey, tags: np.ndarray, k: int):
+    spec = survey.spec
+    with open(survey.paths[k][:-4] + ".json", "w") as f:
+        json.dump(dict(latitude=float(tags[k, 0]), longitude=float(tags[k, 1]), altitude=float(tags[k, 2]),
+                       focal_length_px=spec.focal_px * spec.focal_tag_scale, camera_make="Synthetic",
+                       camera_model="TestCam"), f)
+
+
+def _geotags(survey: Survey, origin_latlon) -> np.ndarray:
+    return TransverseMercator(*origin_latlon).to_wgs84(survey.local_positions())
+
+
+def _render_jpegs(survey: Survey, seed: int, paths: List[str], device, then=None):
+    """Render the survey's views on ``device`` and encode each into its path
+    of ``paths`` on host threads; ``then(k)`` runs after image k is written."""
+    spec = survey.spec
+    extent = survey_extent(spec)
+    tex = make_texture(seed, int(round(extent / 150.0 * spec.texture_px_per_150m)), device)
+
+    def write(k: int, bgr: np.ndarray):
+        with open(paths[k], "wb") as f:
+            f.write(encode_jpeg(bgr, spec.jpeg_quality))
+        if then is not None:
+            then(k)
+
+    gain_t = torch.as_tensor(survey.gains, dtype=torch.float32, device=tex.device)
+    with concurrent.futures.ThreadPoolExecutor(ENCODE_THREADS) as pool:
+        futures = []
+        for c0 in range(0, len(paths), RENDER_CHUNK):
+            c1 = min(c0 + RENDER_CHUNK, len(paths))
+            rgb = render_views(tex, survey.positions[c0:c1], survey.quats[c0:c1], spec, extent)
+            u8 = (rgb * gain_t[c0:c1, None, None, None]).clamp(0, 1).mul(255).to(torch.uint8)
+            bgr = u8.flip(-1).cpu().numpy()
+            futures += [pool.submit(write, k, bgr[k - c0]) for k in range(c0, c1)]
+        for fut in futures:
+            fut.result()
+
+
 def write_survey(directory: str, spec: SurveySpec, seed: int, *, device, lines=None, per_line=None,
                  origin_latlon=(ORIGIN_LAT, ORIGIN_LON)) -> Survey:
     """Render the survey (or the block ``lines`` x ``per_line`` of it) from
@@ -306,34 +368,40 @@ def write_survey(directory: str, spec: SurveySpec, seed: int, *, device, lines=N
     model) into ``directory``; the first image is geotagged at
     ``origin_latlon`` (degrees). Rendering runs on ``device``, JPEG encoding
     on host threads."""
-    positions, quats, index = flight_plan(spec, seed, lines, per_line)
-    gains = np.random.default_rng(seed + 104729).uniform(
-        1.0 - spec.gain_spread, 1.0 + spec.gain_spread, size=(spec.lines, spec.per_line))[index[:, 0], index[:, 1]]
-    extent = survey_extent(spec)
-    tex = make_texture(seed, int(round(extent / 150.0 * spec.texture_px_per_150m)), device)
-    geo = TransverseMercator(*origin_latlon)
-    local = positions.copy()
-    local[:, :2] -= positions[0, :2]
-    tags = geo.to_wgs84(local)
-    paths = [os.path.join(directory, f"IMG_{k:04d}.jpg") for k in range(len(positions))]
+    survey = plan_survey(directory, spec, seed, lines, per_line)
+    tags = _geotags(survey, origin_latlon)
+    _render_jpegs(survey, seed, survey.paths, device, then=lambda k: _sidecar(survey, tags, k))
+    return survey
 
-    def write(k: int, bgr: np.ndarray):
-        with open(paths[k], "wb") as f:
-            f.write(encode_jpeg(bgr, spec.jpeg_quality))
-        with open(paths[k][:-4] + ".json", "w") as f:
-            json.dump(dict(latitude=float(tags[k, 0]), longitude=float(tags[k, 1]), altitude=float(tags[k, 2]),
-                           focal_length_px=spec.focal_px * spec.focal_tag_scale, camera_make="Synthetic",
-                           camera_model="TestCam"), f)
 
-    gain_t = torch.as_tensor(gains, dtype=torch.float32, device=tex.device)
-    with concurrent.futures.ThreadPoolExecutor(ENCODE_THREADS) as pool:
-        futures = []
-        for c0 in range(0, len(positions), RENDER_CHUNK):
-            c1 = min(c0 + RENDER_CHUNK, len(positions))
-            rgb = render_views(tex, positions[c0:c1], quats[c0:c1], spec, extent)
-            u8 = (rgb * gain_t[c0:c1, None, None, None]).clamp(0, 1).mul(255).to(torch.uint8)
-            bgr = u8.flip(-1).cpu().numpy()
-            futures += [pool.submit(write, k, bgr[k - c0]) for k in range(c0, c1)]
-        for fut in futures:
-            fut.result()
-    return Survey(spec=spec, paths=paths, positions=positions, quats=quats, gains=gains, index=index)
+def _cache_key(spec: SurveySpec, seed: int) -> str:
+    """What decides the JPEGs' bytes: the survey, its seed, and the sources
+    of the renderer and the encoder."""
+    h = hashlib.sha256(json.dumps([dataclasses.asdict(spec), seed], sort_keys=True).encode())
+    for path in (os.path.abspath(__file__), JPEG_SOURCE):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def cached_survey(directory: str, spec: SurveySpec, seed: int, cache: str, *, device,
+                  origin_latlon=(ORIGIN_LAT, ORIGIN_LON)) -> Survey:
+    """``write_survey`` of the whole survey, with its JPEGs rendered once
+    into ``cache/<key>`` and linked into ``directory``: they are the same for
+    every origin. The sidecars, which carry the origin, are written anew."""
+    survey = plan_survey(directory, spec, seed)
+    done = os.path.join(cache, _cache_key(spec, seed))
+    names = [os.path.basename(p) for p in survey.paths]
+    if not os.path.isdir(done):
+        os.makedirs(cache, exist_ok=True)
+        part = tempfile.mkdtemp(prefix=".partial-", dir=cache)
+        _render_jpegs(survey, seed, [os.path.join(part, n) for n in names], device)
+        try:
+            os.rename(part, done)
+        except OSError:  # another process filled it first
+            shutil.rmtree(part, ignore_errors=True)
+    tags = _geotags(survey, origin_latlon)
+    for k, name in enumerate(names):
+        os.symlink(os.path.join(done, name), survey.paths[k])
+        _sidecar(survey, tags, k)
+    return survey

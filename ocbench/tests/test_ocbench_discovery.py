@@ -24,7 +24,7 @@ def test_new_files_are_found_by_name(tmp_path):
     cfg["survey"]["across_track_m"] = 24.0
     (tmp_path / "ocbench/configs/wide1600.json").write_text(json.dumps(cfg))
     (tmp_path / "ocbench/traffic/ingest_long.json").write_text(json.dumps(
-        {"mode": "ingest", "warm_batches": 5, "profile_batches": 2, "min_inliers": 50}))
+        {"mode": "ingest", "warm_batches": 5, "window_images": 256, "min_inliers": 50}))
     (tmp_path / "ocbench/limits/ingest_long.wide1600.json").write_text(json.dumps({"numbers": {"missing": {"max": 0}}}))
     (tmp_path / "ocbench/metrics/batches_per_s.py").write_text(
         "def read(record):\n    return record['batches'] / record['window_s'] if record.get('batches') else None\n")

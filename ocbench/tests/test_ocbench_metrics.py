@@ -12,28 +12,39 @@ from ocbench.trace import reduce_events
 
 RECORD = {
     "timers": {"ip: load finish": 1.5, "ip: link run": 8.0, "ip: relax dispatch": 6.0, "ip: relax run": 9.0,
-               "jpeg: decode": 12.0, "build: model inversion": 2.0, "refresh: model inversion": 1.0,
-               "writeback: model conversion": 0.5, "state MESH_REFINEMENT": 7.0,
-               "state FINAL_GLOBAL_RELAX": 8.0},
+               "jpeg: decode": 12.0, "load: extract device": 2.5, "build: model inversion": 2.0,
+               "refresh: model inversion": 1.0, "writeback: model conversion": 0.5, "state MESH_REFINEMENT": 7.0,
+               "state FINAL_GLOBAL_RELAX": 8.0, "lm: solve": 3.2, "lm: linearize": 0.8, "lm: linear solve": 0.4},
     "counts": {"jpeg: decode": 120},
-    "events": {},
+    "events": {"lm steps": 400.0, "lm host reads": 450.0, "lm graph steps": 300.0, "model fits": 12.0,
+               "model fit repeats": 9.0},
     "lm": {"iterations": 200, "seconds": 14.0, "calls": 30},
-    "images": 100, "jobs": 2,
+    "images": 100, "jobs": 2, "batches": 4,
     "slice": {"busy_s": 1.0, "window_s": 8.0, "hamming_device_s": 2 * 40e-6,
               "hamming_launches": [(16, 1024, 1024), (16, 1024, 1024)]},
 }
 EXPECTED = {
     "load_wait_ms_per_image.ingest": 15.0,
     "jpeg_decode_ms.ingest": 100.0,
+    "extract_ms_per_image.ingest": 25.0,
     "link_ms_per_image.ingest": 80.0,
     "ip_relax_ms_per_image.ingest": 150.0,
     "model_inversion_ms_per_image.ingest": 35.0,
     "model_inversion_s.calibrate": 1.75,
     "mesh_refinement_s.calibrate": 3.5,
     "final_relax_s.calibrate": 4.0,
-    "lm_ms_per_iter.ingest": 70.0,
     "lm_ms_per_iter.calibrate": 70.0,
     "lm_iters.calibrate": 100.0,
+    "lm_steps.calibrate": 200.0,
+    "lm_steps.ingest": 100.0,
+    "lm_step_ms.calibrate": 8.0,
+    "lm_step_ms.ingest": 8.0,
+    "lm_linearize_ms_per_step.calibrate": 2.0,
+    "lm_linear_solve_ms_per_step.calibrate": 1.0,
+    "lm_host_reads_per_step.calibrate": 1.125,
+    "lm_graph_step_share.calibrate": 75.0,
+    "model_fits.calibrate": 6.0,
+    "model_fit_repeat_share.calibrate": 75.0,
     "hamming_top2_roofline.ingest": 100.0 * counts.hamming_top2_bound(16, 1024, 1024)[0] / 40e-6,
     "hamming_top2_roofline.calibrate": 100.0 * counts.hamming_top2_bound(16, 1024, 1024)[0] / 40e-6,
     "device_idle.ingest": 87.5,
@@ -47,7 +58,7 @@ def per_layer_names():
 
 
 def test_every_metric_of_the_benchmark_is_covered_here():
-    # the rest are the readers of the ingest cell that waits (PERF.md, Open questions)
+    # the .ingest cases are the readers of the ingest cell that waits (PERF.md, Open questions)
     assert set(per_layer_names()) <= set(EXPECTED)
     assert {m for m in EXPECTED if m.endswith(".calibrate")} <= set(per_layer_names())
 
@@ -59,7 +70,8 @@ def test_reader(name):
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
 def test_reader_with_nothing_to_read_returns_none(name):
-    assert C.metric_reader(name)({"timers": {}, "counts": {}, "lm": {}, "images": 0, "jobs": 0, "slice": None}) is None
+    empty = {"timers": {}, "counts": {}, "events": {}, "lm": {}, "images": 0, "jobs": 0, "batches": 0, "slice": None}
+    assert C.metric_reader(name)(empty) is None
 
 
 class Ev:

@@ -26,25 +26,40 @@ def load_benchmark() -> dict:
         return json.load(f)
 
 
+INGEST_METRICS = ("load_wait_ms_per_image", "jpeg_decode_ms", "extract_ms_per_image", "link_ms_per_image",
+                  "hamming_top2_roofline", "ip_relax_ms_per_image", "model_inversion_ms_per_image", "lm_steps",
+                  "lm_step_ms", "device_idle")
+
+
 def small_ingest():
     """``ingest.nadir1600``, the cell whose files wait under ``ocbench/`` for
     its entry in BENCHMARK.json, at 320 x 240 (focal and texture scaled with
     it, so footprints and overlaps stay), three lines of four, batches of
-    two."""
+    two, a window of two batches."""
     bench = load_benchmark()
     cell = {"name": "ingest.nadir1600", "config": "nadir1600", "traffic": "ingest", "chips": 1}
     bench["workloads"].append(cell)
     bench["end_to_end"].append({"name": "ingest_images_per_s", "unit": "images/s", "better": "higher",
                                 "bound": 0.25, "source": "host_clock", "workloads": [cell["name"]]})
+    bench["per_layer"] += [{"name": f"{m}.ingest", "unit": "-", "better": "lower", "source": "program_span",
+                            "layer": "-", "moves": "ingest_images_per_s", "workloads": [cell["name"]]}
+                           for m in INGEST_METRICS]
     config = C.load_json("configs", "nadir1600.json")
     config["survey"].update(width=320, height=240, focal_px=400.0, texture_px_per_150m=512, lines=3, per_line=4)
     config["pipeline"]["batch_size"] = 2
-    traffic = dict(C.load_json("traffic", "ingest.json"), min_inliers=20)
+    traffic = dict(C.load_json("traffic", "ingest.json"), min_inliers=20, window_images=4)
     # pixels five times as wide as the cell's: angles read about five times
     # larger (0.07-0.3 degrees here against 0.002-0.007 at 1600 x 1200)
     limits = C.load_json("limits", "ingest.nadir1600.json")
     limits["numbers"].update(orientation_deg={"max": 1.0}, edge_deg={"max": 5.0})
     return bench, cell, config, traffic, limits
+
+
+@pytest.fixture
+def survey_cache(tmp_path, monkeypatch):
+    from ocbench.modes import ingest
+
+    monkeypatch.setattr(ingest, "SURVEY_CACHE", str(tmp_path / "cache"))
 
 
 def small_calibrate():
@@ -63,9 +78,10 @@ def small_calibrate():
 
 
 @pytest.mark.parametrize("variant", control.VARIANTS)
-def test_small_run_on_the_cpu(variant, tmp_path):
+def test_small_run_on_the_cpu(variant, tmp_path, survey_cache):
     bench, cell, config, traffic, limits = small_ingest()
     torch.set_num_threads(4)
+    # the window holds the same batches however fast the CPU runs
     with control.planted(variant):
         result = C.run_cell(cell, SEED, 6.0, False, "cpu", str(tmp_path), time.perf_counter(),
                             limits=limits, config=control.variant_config(config, variant), traffic=traffic,
@@ -74,8 +90,22 @@ def test_small_run_on_the_cpu(variant, tmp_path):
     assert list(result)[-3:] == ["checks", "_numbers", "_times"]
     assert set(result["metrics"]) == {"setup_s", "ingest_images_per_s"}
     assert result["metrics"]["ingest_images_per_s"]["value"] > 0
+    assert len(result["_times"]["window_batch_s"]) == 2
     if variant == "float32":  # fails only the precision number
         assert failed_checks(result) == {"quat_norm_gap"}
+
+
+def test_small_traced_run_on_the_cpu(tmp_path, survey_cache):
+    """A traced run profiles the untraced run's window, the same batches;
+    its per-layer readers find the program's spans and counters there."""
+    bench, cell, config, traffic, limits = small_ingest()
+    torch.set_num_threads(4)
+    result = C.run_cell(cell, SEED, 6.0, True, "cpu", str(tmp_path), time.perf_counter(), limits=limits,
+                        config=config, traffic=traffic, benchmark=bench)
+    assert result["correct"] is True, result["checks"]
+    assert len(result["_times"]["window_batch_s"]) == 2
+    assert {"link_ms_per_image.ingest", "ip_relax_ms_per_image.ingest", "extract_ms_per_image.ingest",
+            "lm_steps.ingest", "lm_step_ms.ingest"} <= set(result["metrics"])
 
 
 def failed_checks(result) -> set:
@@ -122,18 +152,21 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("trace", [0, 1])
-def test_short_run_on_the_card(card, trace):
-    out = subprocess.run([sys.executable, "-m", "ocbench.run", "--workload", "calibrate.fixed1600", "--seed",
-                          str(SEED), "--seconds", "25", "--trace", str(trace)], cwd=ROOT, capture_output=True,
+@pytest.mark.parametrize("workload, seconds, trace", [
+    ("calibrate.fixed1600", 25, 0), ("calibrate.fixed1600", 25, 1)])
+def test_short_run_on_the_card(card, workload, seconds, trace):
+    out = subprocess.run([sys.executable, "-m", "ocbench.run", "--workload", workload, "--seed", str(SEED),
+                          "--seconds", str(seconds), "--trace", str(trace)], cwd=ROOT, capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"] is True
     assert result["device"]["platform"] == "gpu" and result["device"]["count"] == 1
     assert list(result)[-1] == "checks"
+    bench = load_benchmark()
+    cell = C.find_cell(bench, workload)
     if trace:
         assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
-        assert "hamming_top2_roofline.calibrate" in result["metrics"]
+        assert f"hamming_top2_roofline.{cell['traffic']}" in result["metrics"]
     else:
-        assert set(result["metrics"]) == {"setup_s", "calibrate_s"}
+        assert set(result["metrics"]) == {m["name"] for m in C.cell_metrics(bench, cell, "end_to_end")}

@@ -1,6 +1,8 @@
 """The frozen renderer's truth: footprint, overlaps, serpentine order, the
-block a seed picks, geotags, and the JPEG encoder's bytes."""
+block a seed picks, geotags, the JPEG encoder's bytes, and the same survey
+for every seed of the ingest cell."""
 
+import dataclasses
 import json
 import os
 
@@ -27,7 +29,14 @@ def test_footprint_and_overlaps_match_the_config(spec):
 
 
 def test_serpentine_order(spec):
-    pos, quats, index = S.flight_plan(spec, seed=7)
+    plain = dataclasses.replace(spec, position_jitter_m=0.0)
+    pos, quats, index = S.flight_plan(plain, seed=7)
+    # the jitter moves each trigger position within its bound east and
+    # north, and nothing else
+    moved, moved_quats, moved_index = S.flight_plan(spec, seed=7)
+    assert np.array_equal(moved_quats, quats) and np.array_equal(moved_index, index)
+    assert np.abs(moved[:, :2] - pos[:, :2]).max() <= spec.position_jitter_m
+    assert np.array_equal(moved[:, 2], pos[:, 2])
     assert len(pos) == spec.lines * spec.per_line
     for line in range(spec.lines):
         mine = np.where(index[:, 0] == line)[0]
@@ -114,3 +123,98 @@ def test_drawn_origin():
     lat, lon = np.array(drawn).T
     assert np.all(np.abs(lat) <= 60.0) and np.all(np.abs(lon) <= 180.0)
     assert lat.min() < -30.0 and lat.max() > 30.0 and len(set(drawn)) == len(seeds)
+
+
+def small_ingest_spec() -> S.SurveySpec:
+    config = load_json("configs", "nadir1600.json")
+    config["survey"].update(width=320, height=240, focal_px=400.0, texture_px_per_150m=512, lines=3, per_line=4)
+    return S.SurveySpec.from_config(config)
+
+
+def test_ingest_seeds_render_the_same_pixels_and_move_only_the_geotags(tmp_path, monkeypatch):
+    """Two seeds of the ingest cell, at the CPU run's small size, write the
+    same JPEG bytes, so the same pixels, and the same truth; their sidecars
+    differ only in latitude and longitude."""
+    from ocbench.cell import Run
+    from ocbench.modes import ingest
+    from ocbench.trace import Trace
+    from opencalibration_tpu_torch.io.jpeg import decode_jpeg
+
+    monkeypatch.setattr(ingest, "SURVEY_CACHE", str(tmp_path / "cache"))
+    config = load_json("configs", "nadir1600.json")
+    config["survey"] = dataclasses.asdict(small_ingest_spec())
+    traffic = load_json("traffic", "ingest.json")
+    written = []
+    for seed in (2**31 + 11, 2**31 + 12):
+        run = Run({"name": "ingest.nadir1600"}, config, traffic, seed, 0.0, "cpu", str(tmp_path), Trace(False))
+        (tmp_path / str(seed)).mkdir()
+        written.append(ingest.render(run, str(tmp_path / str(seed))))
+    a, b = written
+    assert [os.path.basename(p) for p in a.paths] == [os.path.basename(p) for p in b.paths]
+    assert np.array_equal(a.positions, b.positions) and np.array_equal(a.quats, b.quats)
+    for pa, pb in zip(a.paths, b.paths):
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            bytes_a, bytes_b = fa.read(), fb.read()
+        assert bytes_a == bytes_b
+        assert np.array_equal(decode_jpeg(bytes_a), decode_jpeg(bytes_b))
+        with open(pa[:-4] + ".json") as fa, open(pb[:-4] + ".json") as fb:
+            tag_a, tag_b = json.load(fa), json.load(fb)
+        assert {k for k in tag_a if tag_a[k] != tag_b[k]} == {"latitude", "longitude"}
+
+
+def test_cached_survey_is_the_written_survey_and_renders_once(tmp_path, monkeypatch):
+    """The cache's JPEGs and the sidecars beside them are what
+    ``write_survey`` writes, byte for byte; a second call renders nothing."""
+    spec = small_ingest_spec()
+    origin = S.draw_origin(2**31 + 31, 60.0)
+    for name in ("plain", "first", "second"):
+        (tmp_path / name).mkdir()
+    plain = S.write_survey(str(tmp_path / "plain"), spec, 5, device="cpu", origin_latlon=origin)
+    first = S.cached_survey(str(tmp_path / "first"), spec, 5, str(tmp_path / "cache"), device="cpu",
+                            origin_latlon=origin)
+
+    def no_render(*args, **kw):
+        raise AssertionError("rendered again")
+
+    monkeypatch.setattr(S, "_render_jpegs", no_render)
+    second = S.cached_survey(str(tmp_path / "second"), spec, 5, str(tmp_path / "cache"), device="cpu",
+                             origin_latlon=origin)
+    assert len(os.listdir(tmp_path / "cache")) == 1
+    for sv in (first, second):
+        assert np.array_equal(sv.positions, plain.positions) and np.array_equal(sv.gains, plain.gains)
+        for p, q in zip(plain.paths, sv.paths):
+            assert os.path.basename(p) == os.path.basename(q)
+            for a, b in ((p, q), (p[:-4] + ".json", q[:-4] + ".json")):
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    assert fa.read() == fb.read()
+
+
+def test_ingest_seeds_give_the_link_the_same_candidates():
+    """The geotags of three seeds, turned into local positions as the program
+    turns them, give the link stage the same candidate pairs batch by batch:
+    the survey's jitter leaves no tie among a camera's nearest images for
+    the geotags' rounding to break."""
+    from opencalibration_tpu_torch.geo.geo_coord import GeoCoord
+    from opencalibration_tpu_torch.pipeline.stages import LinkStage
+    from opencalibration_tpu_torch.types.graph import MeasurementGraph
+
+    config = load_json("configs", "nadir1600.json")
+    spec = S.SurveySpec.from_config(config)
+    traffic = load_json("traffic", "ingest.json")
+    batch = config["pipeline"]["batch_size"]
+    pos, _, _ = S.flight_plan(spec, traffic["survey_seed"])
+    local = pos - np.array([pos[0, 0], pos[0, 1], 0.0])
+    picked = []
+    for seed in (2**31 + 21, 2**31 + 22, 2**31 + 23):
+        tags = S.TransverseMercator(*S.draw_origin(seed, traffic["max_latitude"])).to_wgs84(local)
+        geo = GeoCoord()
+        geo.set_origin(tags[0, 0], tags[0, 1])
+        gps = {}
+        stage, candidates = LinkStage(device="cpu"), []
+        for b0 in range(0, len(local), batch):
+            ids = range(b0, min(b0 + batch, len(local)))
+            gps.update({k: np.asarray(geo.to_local(*tags[k]))[:2] for k in ids})
+            stage.init(MeasurementGraph(seed=0), gps, list(ids))
+            candidates.append(sorted(stage._candidates))
+        picked.append(candidates)
+    assert picked[0] == picked[1] == picked[2]
